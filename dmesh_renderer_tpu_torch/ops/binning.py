@@ -1,0 +1,297 @@
+"""Tile binning: (face, tile) pair emission, tile sort and tile ranges.
+
+A port of the JAX package's ``ops/binning.py``, written the plain GPU way
+(the TPU's gather-free boundary scatters and cummax fills are not needed):
+
+1. per-view stable depth pre-sort of the faces (``torch.sort(stable=True)``
+   over [B, F]);
+2. exact emission: each emitting face expands into (face, tile-row) runs
+   and each run into its covered tiles (``repeat_interleave``); a tile row
+   is kept only where the conservative corner test of
+   ``_row_tile_interval`` passes, so only pairs that can cover a pixel are
+   emitted;
+3. one stable sort of the slots by int tile key (CUB radix sort on the
+   card), which keeps the emission order -- depth-sorted face, tile row,
+   tx -- inside every tile;
+4. tile ranges by ``searchsorted``.
+
+The result is the same set and per-tile order of pairs as the JAX package,
+under the same capacity policy: at most ``kcap`` slots and ``run_cap`` runs
+are kept in emission order, so the farthest faces of the highest view lose
+their tiles first, and ``overflow`` is ``total > kcap`` or a run-table
+overflow. The number of emitted pairs (``total``) is exact and independent
+of the capacity, as ``num_rendered`` of the JAX package.
+
+Not ported, by design: slab alignment (``align_to_slabs``), which exists
+for the TPU's DMA windows; the CUDA kernel reads unaligned [start, end)
+ranges.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..utils.config import BIN_TILE, SUBPIXEL
+from .geometry import preprocess_faces, project_verts, sat_i32
+
+# The JAX package takes bbox emission above this key capacity; the port
+# does the same so both report the same pair count for any capacity.
+_EXACT_KCAP_MAX = 1 << 28
+# The JAX package's run-table capacity ceiling.
+_MAX_BF = 1 << 21
+
+
+class BinnedKeys(NamedTuple):
+    """Tile-sorted (face, tile) pairs.
+
+    ``slot_face`` holds indices into the per-view depth-sorted face order
+    (view * F + rank); ``sigma`` maps that order back to original
+    view * F + face ids."""
+    slot_face: torch.Tensor  # [S] int32, S = min(total, kcap)
+    sigma: torch.Tensor      # [B*F] int64
+    starts: torch.Tensor     # [B * n_tiles] int32
+    ends: torch.Tensor       # [B * n_tiles] int32
+    total: torch.Tensor      # [] int64 emitted pairs (before the capacity)
+    overflow: torch.Tensor   # [] bool
+
+
+def _row_tile_interval(ea, eb, ec, rx, nx, tyf, tile_px, grid_x):
+    """Conservative covered tile interval [lo, lo + cnt) of one tile row.
+
+    For each edge, s = A px + B py + C must be < 0 at some pixel sample of a
+    covered tile; s is affine, so its minimum over the tile is at a corner,
+    and per row the passing tx form an interval cut by three half-lines.
+    The f32 margins only widen the interval. ea/eb/ec: 3-tuples of f32
+    tensors; rx/nx: f32 rect origin/width; tyf: f32 tile row. Returns
+    (lo, cnt) as f32. The op order is the JAX package's, so the counts are
+    bit-identical."""
+    ts = 16.0 * tile_px
+    lof = rx
+    hif = rx + nx - 1.0
+    empty = torch.zeros(tyf.shape, dtype=torch.bool, device=tyf.device)
+    for e in range(3):
+        a, b, c = ea[e], eb[e], ec[e]
+        ox = torch.where(a > 0, 8.0, ts - 16.0 + 8.0)
+        oy = torch.where(b > 0, 8.0, ts - 16.0 + 8.0)
+        yrow = ts * tyf + oy
+        h = a * ox + b * yrow + c
+        eps = 512.0 + 1e-6 * (torch.abs(a) * ts + torch.abs(b * yrow)
+                              + torch.abs(c))
+        g = a * ts
+        bound = ((eps - h) / torch.where(g == 0.0, 1.0, g)).clamp(
+            -2.0, grid_x + 2.0)
+        hif = torch.where(g > 0, torch.minimum(hif, torch.floor(bound + 1e-3)),
+                          hif)
+        lof = torch.where(g < 0, torch.maximum(lof, torch.ceil(bound - 1e-3)),
+                          lof)
+        empty = empty | ((g == 0.0) & (h >= eps))
+    lof = torch.maximum(lof, rx)
+    hif = torch.minimum(hif, rx + nx - 1.0)
+    cnt = torch.where(empty, 0.0, torch.clamp(hif - lof + 1.0, min=0.0))
+    return lof, cnt
+
+
+def _edge_wrap_risk(pre: dict, grid_x: int, grid_y: int,
+                    tile_px: int) -> torch.Tensor:
+    """[B, F] bool: the face's int32 edge functions can wrap somewhere on
+    the tile grid (a vertex near the w=0 plane). The interval cull reasons
+    about true signs, so such faces emit their full bbox rect instead."""
+    s_max = float(SUBPIXEL * tile_px * max(grid_x, grid_y))
+    m = torch.zeros(pre["tiles"].shape, dtype=torch.float32,
+                    device=pre["tiles"].device)
+    for e in range(3):
+        m = torch.maximum(
+            m,
+            (torch.abs(pre["edge_a"][e].float())
+             + torch.abs(pre["edge_b"][e].float())) * s_max
+            + torch.abs(pre["edge_c"][e].float()))
+    return m >= 2.0 ** 30
+
+
+def exact_tile_counts(pre: dict, grid_x: int, grid_y: int,
+                      tile_px: int) -> torch.Tensor:
+    """[B, F] int32: the number of rect tiles whose conservative corner test
+    passes (wrap-risk faces count their full rect)."""
+    eA = [a.float()[None] for a in pre["edge_a"]]
+    eB = [b.float()[None] for b in pre["edge_b"]]
+    eC = [c.float()[None] for c in pre["edge_c"]]
+    rmin, rmax = pre["rect_min"], pre["rect_max"]
+    rx = rmin[..., 0].float()[None]
+    nx = (rmax[..., 0] - rmin[..., 0]).float()[None]
+    ry = rmin[..., 1][None]
+    ny = (rmax[..., 1] - rmin[..., 1])[None]
+    r = torch.arange(grid_y, dtype=torch.int32,
+                     device=rx.device)[:, None, None]
+    tyf = (ry + r).float()
+    _lo, cnt = _row_tile_interval(eA, eB, eC, rx, nx, tyf, tile_px, grid_x)
+    risk = _edge_wrap_risk(pre, grid_x, grid_y, tile_px)
+    cnt = torch.where(risk[None], nx, cnt)
+    cnt = torch.where(r < ny, cnt, 0.0)
+    total = sat_i32(cnt.sum(dim=0))
+    return torch.where((pre["tiles"] > 0) & pre["nondeg"], total,
+                       torch.zeros_like(total))
+
+
+def _depth_presort(pre: dict, emit_counts: torch.Tensor) -> torch.Tensor:
+    """Per-view stable face order by depth key; faces that emit nothing go
+    last. Returns sigma [B*F]: the original view*F+face id of each rank."""
+    B, F = emit_counts.shape
+    key = torch.where(emit_counts > 0, pre["depth"], math.inf)
+    sigma_v = torch.sort(key, dim=1, stable=True).indices
+    offs = torch.arange(B, device=key.device)[:, None] * F
+    return (sigma_v + offs).reshape(-1)
+
+
+def _expand(counts: torch.Tensor, n_keep: int) -> torch.Tensor:
+    """Owner index of each of the first ``n_keep`` items when item i owns
+    ``counts[i]`` consecutive entries."""
+    idx = torch.arange(counts.numel(), device=counts.device)
+    total = int(counts.sum())
+    return torch.repeat_interleave(idx, counts, output_size=total)[:n_keep]
+
+
+def _run_capacity(bf: int, kcap: int, run_cap: int | None = None) -> int:
+    """Capacity of the (face, tile-row) run table: ``run_cap`` when given
+    (measured rows + margin, ``recommended_run_capacity``), else the JAX
+    package's shape heuristic; rounded up to a multiple of 128."""
+    if run_cap is None:
+        cap = max(1024, min(max(4 * bf, kcap // 4), _MAX_BF - 128))
+    else:
+        cap = max(1024, min(int(run_cap), _MAX_BF - 128))
+    return ((cap + 127) // 128) * 128
+
+
+def default_key_capacity(B: int, F: int, avg_tiles_per_face: int = 16) -> int:
+    """Key capacity heuristic, rounded to a multiple of 128."""
+    kcap = max(1024, B * F * avg_tiles_per_face)
+    return ((kcap + 127) // 128) * 128
+
+
+def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
+                  tile_px: int | None = None,
+                  run_cap: int | None = None) -> BinnedKeys:
+    """Build the tile-sorted pair table from ``preprocess_faces`` output.
+
+    With ``tile_px`` (the render path), exact-coverage emission; without
+    it, or above the exact path's capacity limit, every tile of the bbox
+    rect is emitted, as in the JAX package."""
+    tiles = pre["tiles"]
+    B, F = tiles.shape
+    dev = tiles.device
+    n_tiles = grid_x * grid_y
+    exact = tile_px is not None and kcap < _EXACT_KCAP_MAX and tiles.numel()
+
+    rmin, rmax = pre["rect_min"], pre["rect_max"]
+    if exact:
+        counts = exact_tile_counts(pre, grid_x, grid_y, tile_px)
+    else:
+        counts = tiles
+    sigma = _depth_presort(pre, counts)
+    take = lambda x: x.reshape(B * F, *x.shape[2:])[sigma]
+
+    # --- (face, tile-row) runs, in emission order ---
+    ny_s = take(rmax[..., 1] - rmin[..., 1]).long()
+    ny_eff = torch.where(take(counts) > 0, ny_s, 0)
+    n_rows = int(ny_eff.sum())
+    if exact:
+        nr_cap = _run_capacity(B * F, kcap, run_cap)
+        row_overflow = n_rows > nr_cap
+        n_runs = min(n_rows, nr_cap)
+    else:
+        row_overflow = False
+        n_runs = n_rows
+    runq = _expand(ny_eff, n_runs)  # sorted-space face of each run
+    row_excl = torch.cumsum(ny_eff, 0) - ny_eff
+    ridx = torch.arange(n_runs, device=dev) - row_excl[runq]
+    rx = take(rmin[..., 0])[runq]
+    nx = take(rmax[..., 0] - rmin[..., 0])[runq]
+    ty = take(rmin[..., 1])[runq].long() + ridx
+    if exact:
+        cols = [take(pre[k][e])[runq].float()
+                for k in ("edge_a", "edge_b", "edge_c") for e in range(3)]
+        tyf = take(rmin[..., 1])[runq].float() + ridx.float()
+        lo_f, cnt_f = _row_tile_interval(
+            cols[0:3], cols[3:6], cols[6:9], rx.float(), nx.float(), tyf,
+            tile_px, grid_x)
+        risk = take(_edge_wrap_risk(pre, grid_x, grid_y, tile_px))[runq]
+        lo_f = torch.where(risk, rx.float(), lo_f)
+        cnt_f = torch.where(risk, nx.float(), cnt_f)
+        rcnt = sat_i32(cnt_f).long()
+        rlo = sat_i32(lo_f.clamp(0.0, grid_x - 1.0)).long()
+        rty = sat_i32(tyf.clamp(0.0, grid_y - 1.0)).long()
+    else:
+        rcnt, rlo, rty = nx.long(), rx.long(), ty
+
+    # --- runs -> slots (the first kcap in emission order are kept) ---
+    total = rcnt.sum()
+    n_slots = min(int(total), kcap)
+    run = _expand(rcnt, n_slots)
+    excl = torch.cumsum(rcnt, 0) - rcnt
+    k = torch.arange(n_slots, device=dev) - excl[run]
+    bf = runq[run]
+    tile_key = (bf // F) * n_tiles + rty[run] * grid_x + rlo[run] + k
+    overflow = (total > kcap) | row_overflow
+    return _sort_and_ranges(tile_key, bf, sigma, B * n_tiles, total,
+                            overflow)
+
+
+def _sort_and_ranges(tile_key, bf, sigma, n_tiles_total, total, overflow):
+    """Stable sort of the slots by tile key (keeps the emission order inside
+    every tile) and each tile's [start, end) range."""
+    tile_key_s, perm = torch.sort(tile_key, stable=True)
+    tids = torch.arange(n_tiles_total, device=tile_key.device)
+    starts = torch.searchsorted(tile_key_s, tids, right=False)
+    ends = torch.searchsorted(tile_key_s, tids, right=True)
+    return BinnedKeys(
+        slot_face=bf[perm].to(torch.int32),
+        sigma=sigma,
+        starts=starts.to(torch.int32),
+        ends=ends.to(torch.int32),
+        total=total,
+        overflow=torch.as_tensor(overflow, device=tile_key.device),
+    )
+
+
+def _scene_pre(verts, faces, mv_t, proj_t, height, width, tile_px):
+    gx = (width + tile_px - 1) // tile_px
+    gy = (height + tile_px - 1) // tile_px
+    ndc, img = project_verts(verts, mv_t, proj_t, width, height)
+    return preprocess_faces(ndc, img, faces, width, height, tile_px,
+                            tile_px), gx, gy
+
+
+def recommended_key_capacity(verts, faces, mv_t, proj_t, height, width, *,
+                             tile_px: int | None = None,
+                             margin: float = 1.25, exact: bool = True,
+                             bucket: int = 65_536) -> int:
+    """Measure a scene's (face, tile) pair count and return a key capacity
+    with ``margin`` headroom, rounded up to a multiple of ``bucket``
+    (``exact=False`` counts bbox rects). Tensors in, on any device."""
+    tile_px = BIN_TILE if tile_px is None else tile_px
+    pre, gx, gy = _scene_pre(verts, faces, mv_t, proj_t, height, width,
+                             tile_px)
+    if exact:
+        total = int(exact_tile_counts(pre, gx, gy, tile_px).sum())
+    else:
+        total = int(torch.where(pre["valid"], pre["tiles"], 0).sum())
+    need = max(1024, int(math.ceil(total * margin)))
+    return ((need + bucket - 1) // bucket) * bucket
+
+
+def recommended_run_capacity(verts, faces, mv_t, proj_t, height, width, *,
+                             tile_px: int | None = None,
+                             margin: float = 1.25,
+                             bucket: int = 8192) -> int:
+    """Measure a scene's (face, tile-row) run count and return a run-table
+    capacity with ``margin`` headroom, rounded up to ``bucket``."""
+    tile_px = BIN_TILE if tile_px is None else tile_px
+    pre, gx, gy = _scene_pre(verts, faces, mv_t, proj_t, height, width,
+                             tile_px)
+    cnt = exact_tile_counts(pre, gx, gy, tile_px)
+    ny = torch.where(cnt > 0, pre["rect_max"][..., 1] - pre["rect_min"][..., 1],
+                     0)
+    need = max(1024, int(math.ceil(int(ny.sum()) * margin)))
+    return ((need + bucket - 1) // bucket) * bucket

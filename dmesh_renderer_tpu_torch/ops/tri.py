@@ -1,0 +1,72 @@
+"""Tri renderer dispatch: dense oracle (small scenes) or binned (scaled).
+
+A port of the JAX package's ``ops/tri.py``, including its empty-geometry
+behaviour. The strategy follows the face count and the device of the
+inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .tri_oracle import render_tri_oracle
+
+# Face counts above which the binned path is taken. On the CPU the binned
+# composite is the plain torch loop, so the dense path stays preferable far
+# longer. The GPU value is the JAX package's accelerator threshold, until an
+# H100 measurement sets the port's own.
+BINNED_THRESHOLD_CPU = 4096
+BINNED_THRESHOLD_GPU = 256
+
+
+def render_tri_auto(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+                    inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
+                    height: int, width: int, *, force: str | None = None,
+                    kcap: int | None = None, with_aux: bool = False,
+                    run_cap: int | None = None):
+    """Render triangles, forward only; the strategy follows the face count.
+
+    force: "oracle" or "binned" overrides the choice. kcap/run_cap: the
+    binned path's capacities (None: heuristics). with_aux: also return
+    ``(overflow, num_rendered)``; the oracle has no capacity and reports
+    ``(False, -1)``."""
+    if force not in (None, "oracle", "binned"):
+        raise ValueError(
+            f"force must be None, 'oracle' or 'binned', got {force!r}")
+    dev = verts.device
+    B = mv_t.shape[0]
+    if verts.shape[0] == 0:
+        # with no vertices the reference returns its zero-initialised
+        # outputs as they are -- not background-filled
+        color = torch.zeros((B, 3, height, width), dtype=torch.float32,
+                            device=dev)
+        depth = torch.zeros((B, 1, height, width), dtype=torch.float32,
+                            device=dev)
+        if with_aux:
+            return color, depth, (torch.tensor(False, device=dev),
+                                  torch.tensor(0, device=dev))
+        return color, depth
+    n_faces = faces.shape[0]
+    if n_faces == 0:
+        # no faces: every pixel blends nothing -> bg and depth 1; the
+        # binned path needs a face, so this always takes the oracle
+        force = "oracle"
+    threshold = (BINNED_THRESHOLD_CPU if dev.type == "cpu"
+                 else BINNED_THRESHOLD_GPU)
+    strategy = force or ("binned" if n_faces > threshold else "oracle")
+
+    if strategy == "binned":
+        from .tri_binned import render_tri_binned
+
+        return render_tri_binned(
+            verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+            inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
+            height, width, kcap, with_aux, run_cap)
+
+    out = render_tri_oracle(
+        verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+        inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg, height, width)
+    if with_aux:
+        return out + ((torch.tensor(False, device=dev),
+                       torch.tensor(-1, device=dev)),)
+    return out
