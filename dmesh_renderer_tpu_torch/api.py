@@ -1,4 +1,4 @@
-"""Public API of the tri renderer (forward), in PyTorch.
+"""Public API of the tri renderer, in PyTorch.
 
 The same symbols, signatures, dtype casts and matrix transposes as the tri
 half of the JAX package's ``api.py``: ``TriRenderSettings``, ``render_tri``
@@ -7,9 +7,10 @@ and transposes the modelview/projection matrices). Inputs may be torch
 tensors or NumPy arrays; outputs are torch tensors on ``device``.
 
 Entry points run on ``device="cuda"`` unless the caller passes another
-device; asking for CUDA where there is no card raises. Gradients are not
-part of this port yet: a differentiable input with ``requires_grad=True``
-raises ``NotImplementedError``.
+device; asking for CUDA where there is no card raises. Gradients flow to
+``verts``, ``verts_color``, ``faces_opacity``, ``verts_depth`` and
+``faces_intense`` (through the casts to float32 and to ``device``); faces,
+the matrices and ``bg`` get none, as in the reference renderer.
 """
 
 from __future__ import annotations
@@ -19,11 +20,6 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 from torch import nn
-
-_GRAD_MSG = (
-    "gradients of the tri renderer are not ported yet: the backward lands "
-    "with the port of dmesh_renderer_tpu/ops/tri_binned.py::_bwd_kernel; "
-    "pass tensors that do not require grad (or detach them)")
 
 
 def resolve_device(device) -> torch.device:
@@ -36,10 +32,10 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _as_tensor(x: Any, dtype, device, differentiable=False) -> torch.Tensor:
+def _as_tensor(x: Any, dtype, device) -> torch.Tensor:
+    """``x`` as a contiguous tensor of ``dtype`` on ``device``; a tensor's
+    casts are recorded by autograd, so gradients reach the caller's tensor."""
     if isinstance(x, torch.Tensor):
-        if differentiable and x.requires_grad:
-            raise NotImplementedError(_GRAD_MSG)
         return x.to(device=device, dtype=dtype).contiguous()
     return torch.as_tensor(np.asarray(x), dtype=dtype,
                            device=device).contiguous()
@@ -75,14 +71,14 @@ def render_tri(verts, faces, verts_color, faces_opacity, mv_mats, proj_mats,
     mv_t = _as_tensor(mv_mats, f32, dev)
     proj_t = _as_tensor(proj_mats, f32, dev)
     args = (
-        _as_tensor(verts, f32, dev, True),
+        _as_tensor(verts, f32, dev),
         _as_tensor(faces, torch.int32, dev),
-        _as_tensor(verts_color, f32, dev, True),
-        _as_tensor(faces_opacity, f32, dev, True),
+        _as_tensor(verts_color, f32, dev),
+        _as_tensor(faces_opacity, f32, dev),
         mv_t,
         proj_t,
-        _as_tensor(verts_depth, f32, dev, True),
-        _as_tensor(faces_intense, f32, dev, True),
+        _as_tensor(verts_depth, f32, dev),
+        _as_tensor(faces_intense, f32, dev),
         _as_tensor(render_settings.bg, f32, dev),
     )
     check_tri_inputs(*args)

@@ -5,6 +5,8 @@ functional tri call (``render_tri_auto`` / ``render_tri_binned`` /
 ``render_tri_oracle`` order, matrices transposed, inverse matrices given)
 and returns the port's tensors holding the same bits, so that both packages
 can be fed identical inputs, inverse matrices included.
+``tri_scene_from_numpy`` and ``view_batch_from_numpy`` do the same for the
+train step's ``TriScene`` and ``ViewBatch`` (models/dmesh.py).
 """
 
 from __future__ import annotations
@@ -26,6 +28,30 @@ def tri_inputs_from_numpy(verts, faces, verts_color, faces_opacity, mv_t,
             f32(verts_color), f32(faces_opacity), f32(mv_t), f32(proj_t),
             f32(inv_mv_t), f32(inv_proj_t), f32(verts_depth),
             f32(faces_intense), f32(bg))
+
+
+def tri_scene_from_numpy(verts, verts_color, faces_opacity, device="cuda"):
+    """The JAX package's ``TriScene`` arrays -> the port's ``TriScene`` of
+    f32 leaf tensors on ``device`` that require grad. Optimiser state
+    starts at zero in both packages, so carrying the scene is enough for
+    both to take the same steps."""
+    from .models.dmesh import TriScene
+
+    return TriScene(*(torch.from_numpy(np.array(a, dtype=np.float32))
+                      .to(device).requires_grad_(True)
+                      for a in (verts, verts_color, faces_opacity)))
+
+
+def view_batch_from_numpy(mv_t, proj_t, inv_mv_t, inv_proj_t, verts_depth,
+                          faces_intense, target, device="cuda"):
+    """The JAX package's ``ViewBatch`` arrays -> the port's ``ViewBatch`` of
+    f32 tensors on ``device``."""
+    from .models.dmesh import ViewBatch
+
+    return ViewBatch(*(torch.from_numpy(np.array(a, dtype=np.float32))
+                       .to(device)
+                       for a in (mv_t, proj_t, inv_mv_t, inv_proj_t,
+                                 verts_depth, faces_intense, target)))
 
 
 def outputs_to_numpy(outputs):

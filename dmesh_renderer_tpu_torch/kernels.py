@@ -32,6 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "tri_fwd": {"tri_fwd_composite": [_P] * 8 + [_I] * 3 + [_P]},
+    "tri_bwd": {"tri_bwd_composite": [_P] * 11 + [_I] * 3 + [_P],
+                "seg_sum": [_P] * 4 + [_I] * 2 + [_P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

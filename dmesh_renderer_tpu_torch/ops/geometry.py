@@ -1,6 +1,7 @@
-"""Geometry primitives of the tri forward, in plain torch.
+"""Geometry primitives of the tri renderer, in plain torch.
 
-A port of the JAX package's ``ops/geometry.py`` (forward half). Coverage,
+A port of the JAX package's ``ops/geometry.py`` (the tri half, with the
+gradient helpers of the backward). Coverage,
 culling and sort keys are integer or boolean decisions taken from f32 values,
 so this module repeats the JAX arithmetic operation for operation:
 
@@ -67,8 +68,11 @@ def ndc2pix(v: torch.Tensor, size) -> torch.Tensor:
 
 
 def pix2ndc(v: torch.Tensor, size) -> torch.Tensor:
-    """Continuous pixel coordinate -> NDC, rounded in f32."""
-    return ((v * 2.0 + 1.0) / size) - 1.0
+    """Continuous pixel coordinate -> NDC, rounded in f32.
+
+    The divisor is a tensor: CUDA divides by a Python scalar as a multiply
+    by its reciprocal, which rounds differently from the CPU's division."""
+    return ((v * 2.0 + 1.0) / torch.full_like(v, size)) - 1.0
 
 
 def clamp_w(w: torch.Tensor, eps: float = W_EPS) -> torch.Tensor:
@@ -210,6 +214,61 @@ def clamp_bary_uv(u: torch.Tensor, v: torch.Tensor):
     for k, cond in reversed(list(enumerate((c0, c1, c2, c3, c4, c5)))):
         code = torch.where(cond, torch.full_like(code, k), code)
     return u_c, v_c, code
+
+
+def clamp_bary_uv_grad(code: torch.Tensor):
+    """Jacobian of (u_c, v_c) w.r.t. (u, v) by clamp region code.
+
+    Returns (duc_du, duc_dv, dvc_du, dvc_dv) f32, the shape of ``code``:
+    identity in region 0, one axis kept in 4 and 5, the +/-0.5 mixing in 6,
+    zero elsewhere."""
+    f = lambda b: b.to(torch.float32)
+    is0, is4, is5, is6 = (f(code == k) for k in (0, 4, 5, 6))
+    duc_du = is0 + is5 + 0.5 * is6
+    dvc_dv = is0 + is4 + 0.5 * is6
+    duc_dv = -0.5 * is6
+    dvc_du = -0.5 * is6
+    return duc_du, duc_dv, dvc_du, dvc_dv
+
+
+def ray_tri_uv_grads_reference(ray_o, ray_d, p0, p1, p2):
+    """The reference renderer's analytic (u, v) gradients w.r.t. the vertex
+    positions: (du_dp0, du_dp1, du_dp2, dv_dp0, dv_dp1, dv_dp2), each
+    [..., 3].
+
+    The "dv" formulas are, as in the reference, the quotient-rule gradient
+    of the ray parameter t, not of the barycentric v: ``v2 = (T x E1) . E2``
+    is the numerator of t, where the forward's v uses ``(T x E1) . d``. The
+    backward chains dL/dv through them, so this keeps them. A zero
+    denominator is replaced by 1 (those lanes are masked by the callers)."""
+    t_vec = ray_o - p0
+    e1 = p1 - p0
+    e2 = p2 - p0
+
+    rd_x_e2 = cross(ray_d, e2)
+    denom_sqrt = dot3(rd_x_e2, e1)
+    denom = denom_sqrt * denom_sqrt
+    denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    inv = torch.reciprocal(denom)[..., None]
+
+    v0 = dot3(rd_x_e2, t_vec)[..., None]  # u numerator
+    v1 = denom_sqrt[..., None]
+    v2 = dot3(cross(t_vec, e1), e2)[..., None]  # t numerator
+
+    t_x_rd = cross(t_vec, ray_d)
+    e1_x_rd = cross(e1, ray_d)
+
+    du_de1 = -rd_x_e2 * v0 * inv
+    du_de2 = (t_x_rd * v1 - v0 * e1_x_rd) * inv
+    du_dt = rd_x_e2 * v1 * inv
+
+    dv_de1 = (cross(e2, t_vec) * v1 - v2 * rd_x_e2) * inv
+    dv_de2 = (cross(t_vec, e1) * v1 - v2 * e1_x_rd) * inv
+    dv_dt = cross(e1, e2) * v1 * inv
+
+    du_dp0 = -du_de1 - du_de2 - du_dt
+    dv_dp0 = -dv_de1 - dv_de2 - dv_dt
+    return du_dp0, du_de1, du_de2, dv_dp0, dv_de1, dv_de2
 
 
 # =============================================================================

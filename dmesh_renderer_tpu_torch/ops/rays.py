@@ -34,7 +34,11 @@ def generate_rays(inv_mv_t, inv_proj_t, width: int, height: int):
         pix_view, inv_mv_t[:, None, None, :, :])[..., :3]
 
     d = pix_world - ray_o[:, None, None, :]
-    norm = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
-                      + d[..., 2] * d[..., 2]) + 1e-7
+    # the root is taken in f64 and rounded once to f32, which is the
+    # correctly rounded f32 root: torch's CPU sqrt (a vector-math routine)
+    # is not correctly rounded and CUDA's is, and the rays must not depend
+    # on the device
+    sq = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    norm = torch.sqrt(sq.double()).float() + 1e-7
     ray_d = d / norm[..., None]
     return ray_o[:, None, None, :].expand(ray_d.shape), ray_d

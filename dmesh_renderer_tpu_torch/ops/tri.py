@@ -2,7 +2,8 @@
 
 A port of the JAX package's ``ops/tri.py``, including its empty-geometry
 behaviour. The strategy follows the face count and the device of the
-inputs.
+inputs. Both strategies are differentiable; with no vertices the output is
+a constant zero image whose gradients are zeros of the inputs' shapes.
 """
 
 from __future__ import annotations
@@ -19,12 +20,32 @@ BINNED_THRESHOLD_CPU = 4096
 BINNED_THRESHOLD_GPU = 256
 
 
+class _ConstantZeros(torch.autograd.Function):
+    """A zero (color, depth) image on the inputs' device, with zero
+    gradients for every differentiable input."""
+
+    @staticmethod
+    def forward(ctx, B, height, width, *inputs):
+        ctx.like = [(x.shape, x.device) for x in inputs]
+        dev = inputs[0].device
+        return (torch.zeros((B, 3, height, width), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((B, 1, height, width), dtype=torch.float32,
+                            device=dev))
+
+    @staticmethod
+    def backward(ctx, _dc, _dd):
+        return (None, None, None) + tuple(
+            torch.zeros(s, dtype=torch.float32, device=d) for s, d in ctx.like)
+
+
 def render_tri_auto(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
                     inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
                     height: int, width: int, *, force: str | None = None,
                     kcap: int | None = None, with_aux: bool = False,
                     run_cap: int | None = None):
-    """Render triangles, forward only; the strategy follows the face count.
+    """Render triangles; the strategy follows the face count. Gradients
+    reach verts, verts_color, faces_opacity, verts_depth and faces_intense.
 
     force: "oracle" or "binned" overrides the choice. kcap/run_cap: the
     binned path's capacities (None: heuristics). with_aux: also return
@@ -38,10 +59,9 @@ def render_tri_auto(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
     if verts.shape[0] == 0:
         # with no vertices the reference returns its zero-initialised
         # outputs as they are -- not background-filled
-        color = torch.zeros((B, 3, height, width), dtype=torch.float32,
-                            device=dev)
-        depth = torch.zeros((B, 1, height, width), dtype=torch.float32,
-                            device=dev)
+        color, depth = _ConstantZeros.apply(
+            B, height, width, verts, verts_color, faces_opacity, verts_depth,
+            faces_intense)
         if with_aux:
             return color, depth, (torch.tensor(False, device=dev),
                                   torch.tensor(0, device=dev))

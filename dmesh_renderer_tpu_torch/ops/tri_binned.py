@@ -1,10 +1,10 @@
-"""Tile-binned tri renderer, forward: the scaled path of the tri renderer.
+"""Tile-binned tri renderer: the scaled path of the tri renderer.
 
-A port of the forward half of the JAX package's ``ops/tri_binned.py``:
+A port of the JAX package's ``ops/tri_binned.py``. Forward:
 
   project_verts + preprocess_faces -> emit_and_sort (binning.py)
   -> depth-sorted per-face table (``build_face_table``)
-  -> generate_rays -> ``fwd_composite`` (the CUDA kernel csrc/tri_fwd.cu)
+  -> generate_rays -> ``fwd_composite`` (kernel K1, csrc/tri_fwd.cu)
 
 ``fwd_composite`` composites every 32x32 tile's depth-sorted face list
 front to back per pixel: fixed-point coverage from the int32 edge
@@ -14,13 +14,23 @@ and vertex depth interpolation, and the blend with the T < 1e-4 early exit.
 The kernel looks up each slot's face row itself (``slot_face``), so no
 slot-scale attribute table is built.
 
+Backward (``_RenderTriBinned``, an autograd Function that keeps the keys,
+the sorted face tables, the rays and K1's state from the forward):
+
+  ``bwd_composite`` (kernel K2, csrc/tri_bwd.cu): per 16x16 quarter of a
+  tile, the reverse walk from the quarter's last contributor, with T
+  rebuilt by division from prevT, suffix accumulators, the background term
+  and the clamp + Moller-Trumbore chain, summed over the quarter's pixels
+  into one 22-column record per (slot, quarter)
+  -> ``reduce_records``: segment sums (ops/reduce.py) to depth-sorted rows,
+  back to (view, face) through ``sigma``, over views, and to the vertices.
+
+Every sum has a fixed order, so the gradients are bitwise deterministic.
+
 The face table is compact: [B*F, 27] f32 (TV, E1, E2, Q, 9 corner colours,
 3 vertex depths, opacity, intensity, nondeg) and [B*F, 9] int32 edge
 coefficients (A1 A2 A3 B1 B2 B3 C1 C2 C3), rows in the per-view
 depth-sorted order of ``BinnedKeys.slot_face``.
-
-Gradients are not ported yet: the backward lands with the port of the JAX
-package's ``tri_binned._bwd_kernel``.
 """
 
 from __future__ import annotations
@@ -28,11 +38,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..utils.config import BIN_TILE, T_EPS
 from .binning import default_key_capacity, emit_and_sort
 from .geometry import (
     clamp_bary_uv,
+    clamp_bary_uv_grad,
     cross,
     edge_value,
     face_edge_coeffs,
@@ -40,13 +52,20 @@ from .geometry import (
     project_verts,
 )
 from .rays import generate_rays
+from .reduce import faces_to_verts, seg_sum, segment_csr
 
 TILE = BIN_TILE
+QUAD = 16  # side of the pixel quarter one kernel block covers
 FACE_F32_COLS = 27
 FACE_I32_COLS = 9
 # f32 face-table columns
 _TV, _E1, _E2, _QV, _C0, _D0 = 0, 3, 6, 9, 12, 21
 _ALPHA, _INTEN, _NONDEG = 24, 25, 26
+# gradient-record columns: dL/dalpha, dL/dp0..dp2 (xyz each), the
+# vertex-colour moments sum i_k dL/dcolor_c (k-major) and the vertex-depth
+# moments sum i_k dL/ddepth
+REC_COLS = 22
+_G_ALPHA, _G_P, _G_VC, _G_VD = 0, 1, 10, 19
 
 
 def build_face_table(verts, faces, verts_color, faces_opacity, verts_depth,
@@ -220,17 +239,343 @@ def fwd_composite_plain(starts, ends, slot_face, face_f32, face_i32, ray_d,
         nc.reshape(shape)
 
 
-def render_tri_binned(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
-                      inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
-                      height: int, width: int, kcap: int | None = None,
-                      with_aux: bool = False, run_cap: int | None = None):
-    """Tile-binned tri renderer, forward only.
+def _check_bwd_args(inputs, T, prevT, n_contrib, gin):
+    _check_composite_args(*inputs)
+    B, H, W = inputs[6:]
+    dev = inputs[5].device
+    for t, dtype, shape in ((T, torch.float32, (B, H, W)),
+                            (prevT, torch.float32, (B, H, W)),
+                            (n_contrib, torch.int32, (B, H, W)),
+                            (gin, torch.float32, (B, 5, H, W))):
+        if t.dtype != dtype:
+            raise TypeError(f"bwd_composite: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"bwd_composite: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError("bwd_composite: all tensors must share a device")
 
-    ``kcap``: (face, tile) key capacity (None: ``default_key_capacity``);
-    ``run_cap``: (face, tile-row) run capacity (None: heuristic). Pairs
-    past a capacity are dropped farthest first (see ops/binning.py).
-    Returns (color [B, 3, H, W], depth [B, 1, H, W]) and, with
-    ``with_aux``, ``(overflow bool[], num_rendered int[])``."""
+
+def bwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d, T,
+                  prevT, n_contrib, gin, B: int, H: int, W: int):
+    """Per-slot gradient records of the composite (kernel K2).
+
+    The first nine arguments are ``fwd_composite``'s inputs; T, prevT and
+    n_contrib [B, H, W] are its outputs; gin [B, 5, H, W] f32 holds per
+    pixel (dL/dC rgb, dL/dD, bg . dL/dC + dL/dD). Returns records
+    [S, 4, REC_COLS] f32: for slot s and quarter q (the 16x16 quarter
+    (q // 2, q % 2) of the slot's tile) the sums over the quarter's pixels
+    of dL/dalpha, dL/dp0..dp2 (9), the vertex-colour moments
+    sum i_k dL/dcolor_c (9, k-major) and the vertex-depth moments
+    sum i_k dL/ddepth (3). Slots no pixel of a quarter blended keep zeros.
+
+    On CUDA tensors this launches the kernel of csrc/tri_bwd.cu (and raises
+    if it cannot); on CPU tensors it runs ``bwd_composite_plain``."""
+    inputs = (starts, ends, slot_face, face_f32, face_i32, ray_d, B, H, W)
+    _check_bwd_args(inputs, T, prevT, n_contrib, gin)
+    if ray_d.device.type == "cpu":
+        return bwd_composite_plain(starts, ends, slot_face, face_f32,
+                                   face_i32, ray_d, T, prevT, n_contrib, gin,
+                                   B, H, W)
+    if ray_d.device.type != "cuda":
+        raise ValueError(f"bwd_composite: unsupported device {ray_d.device}")
+    from ..kernels import load
+
+    lib = load("tri_bwd")
+    tensors = [x.contiguous() for x in (starts, ends, slot_face, face_f32,
+                                        face_i32, ray_d, T, prevT, n_contrib,
+                                        gin)]
+    rec = torch.zeros((slot_face.numel(), 4, REC_COLS), dtype=torch.float32,
+                      device=ray_d.device)
+    with torch.cuda.device(ray_d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tri_bwd_composite(
+            *[ctypes.c_void_p(t.data_ptr()) for t in tensors + [rec]],
+            B, H, W, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"tri_bwd_composite launch failed: CUDA error {err}")
+    bwd_composite.launches += 1
+    return rec
+
+
+bwd_composite.launches = 0
+
+
+def _quarters(x, B, H, W, fill):
+    """[B, H, W] -> [B * qy * qx, 256]: the 16x16 quarters of the image
+    (row-major, padded with ``fill``), pixels in block-thread order."""
+    qy, qx = (H + QUAD - 1) // QUAD, (W + QUAD - 1) // QUAD
+    pad = x.new_full((B, qy * QUAD, qx * QUAD), fill)
+    pad[:, :H, :W] = x
+    return pad.reshape(B, qy, QUAD, qx, QUAD).permute(0, 1, 3, 2, 4) \
+        .reshape(B * qy * qx, QUAD * QUAD)
+
+
+def block_sum(v):
+    """[..., 256] -> [...]: the kernel's block sum, in its order: an xor
+    butterfly over each warp's 32 lanes (offsets 16, 8, 4, 2, 1; lane 0's
+    value), then the 8 warp sums added in warp order."""
+    v = v.reshape(*v.shape[:-1], 8, 32)
+    lane = torch.arange(32, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ off]
+    w = v[..., 0]
+    s = w[..., 0]
+    for i in range(1, 8):
+        s = s + w[..., i]
+    return s
+
+
+def bwd_composite_plain(starts, ends, slot_face, face_f32, face_i32, ray_d,
+                        T, prevT, n_contrib, gin, B: int, H: int, W: int):
+    """Plain torch version of ``bwd_composite``: the same per-pixel f32
+    arithmetic and the same sum order, vectorised over the quarters and
+    sequential over the slot position, walked from the back. Each step
+    takes the quarters whose walk reaches it: positions below
+    min(list length, the quarter's largest n_contrib)."""
+    dev = ray_d.device
+    gx = (W + TILE - 1) // TILE
+    gy = (H + TILE - 1) // TILE
+    qy, qx = (H + QUAD - 1) // QUAD, (W + QUAD - 1) // QUAD
+    NQ = B * qy * qx
+    bi = torch.arange(B, device=dev)[:, None, None]
+    yi = torch.arange(qy, device=dev)[None, :, None]
+    xi = torch.arange(qx, device=dev)[None, None, :]
+    tile = ((bi * gy + yi // 2) * gx + xi // 2).reshape(NQ)
+    quarter = ((yi % 2) * 2 + xi % 2).expand(B, qy, qx).reshape(NQ)
+    ty, tx = torch.meshgrid(torch.arange(QUAD, device=dev),
+                            torch.arange(QUAD, device=dev), indexing="ij")
+    px = ((xi.reshape(1, 1, qx, 1, 1) * QUAD + tx) * 16 + 8).expand(
+        B, qy, qx, QUAD, QUAD).reshape(NQ, QUAD * QUAD)
+    py = ((yi.reshape(1, qy, 1, 1, 1) * QUAD + ty) * 16 + 8).expand(
+        B, qy, qx, QUAD, QUAD).reshape(NQ, QUAD * QUAD)
+
+    d = [_quarters(ray_d[..., c], B, H, W, 0.0) for c in range(3)]
+    fT = _quarters(T, B, H, W, 1.0)
+    fpT = _quarters(prevT, B, H, W, 1.0)
+    nc = _quarters(n_contrib, B, H, W, 0).long()  # 0 outside the image
+    g = [_quarters(gin[:, c], B, H, W, 0.0) for c in range(5)]
+
+    start = starts.long()[tile]
+    count = (ends - starts).long()[tile]
+    n_eff = torch.minimum(count, nc.max(dim=1).values)
+
+    zeros = lambda: torch.zeros(NQ, QUAD * QUAD, dtype=torch.float32,
+                                device=dev)
+    st = {"T": fpT.clone(), "first": torch.ones_like(nc, dtype=torch.bool)}
+    for k in ("la", "lr", "lg", "lb", "ld", "ar", "ag", "ab", "ad"):
+        st[k] = zeros()
+    rec = torch.zeros((slot_face.numel(), 4, REC_COLS), dtype=torch.float32,
+                      device=dev)
+
+    n_max = int(n_eff.max()) if NQ else 0
+    for pos in range(n_max - 1, -1, -1):
+        L = torch.nonzero(n_eff > pos).squeeze(1)
+        slot = start[L] + pos
+        row = slot_face[slot].long()
+        f = face_f32[row][:, :, None]  # [nL, 27, 1]: per-face scalars
+        e = face_i32[row].long()
+        s = {k: v[L] for k, v in st.items()}
+        vals, new, live = _bwd_pixel_math(
+            f, e, px[L], py[L], [x[L] for x in d], fT[L], fpT[L],
+            pos < nc[L], [x[L] for x in g], s)
+        for k, v in new.items():
+            st[k][L] = v
+        sums = block_sum(vals)  # [nL, 20]
+        rec[slot, quarter[L]] = torch.where(
+            live[:, None], _record_from_sums(sums, f[..., 0]), 0.0)
+    return rec
+
+
+def _bwd_pixel_math(f, e, px, py, d, fT, fpT, before_nc, g, s):
+    """One slot of the reverse walk for [nL, 256] pixels: coverage, the
+    active mask, the state update and the 20 per-pixel values that the
+    block sums (dalpha, the seven Moller-Trumbore moments S(b), S(a d),
+    S(c d), the nine colour and three depth moments). ``f`` [nL, 27, 1] is
+    the slot's face row. Returns (vals [nL, 20, 256], the new state, and
+    whether any pixel of each quarter is active [nL])."""
+    dx, dy, dz = d
+    g_r, g_g, g_b, g_d, bg_dot = g
+    cover = f[:, _NONDEG] > 0
+    for i in range(3):
+        cover = cover & (edge_value(e[:, i, None], e[:, 3 + i, None],
+                                    e[:, 6 + i, None], px, py) < 0)
+    e1x, e1y, e1z = f[:, _E1], f[:, _E1 + 1], f[:, _E1 + 2]
+    e2x, e2y, e2z = f[:, _E2], f[:, _E2 + 1], f[:, _E2 + 2]
+    tvx, tvy, tvz = f[:, _TV], f[:, _TV + 1], f[:, _TV + 2]
+    qx, qy, qz = f[:, _QV], f[:, _QV + 1], f[:, _QV + 2]
+    Px = dy * e2z - dz * e2y
+    Py = dz * e2x - dx * e2z
+    Pz = dx * e2y - dy * e2x
+    denom = Px * e1x + Py * e1y + Pz * e1z
+    valid = denom != 0.0
+    inv = torch.reciprocal(torch.where(valid, denom, 1.0))
+    u = (Px * tvx + Py * tvy + Pz * tvz) * inv
+    v = (qx * dx + qy * dy + qz * dz) * inv
+    i1, i2, code = clamp_bary_uv(u, v)
+    i0 = 1.0 - i1 - i2
+    active = cover & valid & before_nc
+
+    a = f[:, _ALPHA]
+    one_m_a = torch.clamp_min(1.0 - a, 1e-30)
+    T = torch.where(active & ~s["first"], s["T"] / one_m_a, s["T"])
+    c = [f[:, _C0 + k] for k in range(9)]
+    dd = [f[:, _D0 + k] for k in range(3)]
+    inten = f[:, _INTEN]
+    cr = (i0 * c[0] + i1 * c[3] + i2 * c[6]) * inten
+    cg = (i0 * c[1] + i1 * c[4] + i2 * c[7]) * inten
+    cb = (i0 * c[2] + i1 * c[5] + i2 * c[8]) * inten
+    dep = i0 * dd[0] + i1 * dd[1] + i2 * dd[2]
+    la = s["la"]
+    ar_n = la * s["lr"] + (1.0 - la) * s["ar"]
+    ag_n = la * s["lg"] + (1.0 - la) * s["ag"]
+    ab_n = la * s["lb"] + (1.0 - la) * s["ab"]
+    ad_n = la * s["ld"] + (1.0 - la) * s["ad"]
+
+    aT = a * T
+    dic_r, dic_g, dic_b, did = g_r * aT, g_g * aT, g_b * aT, g_d * aT
+    dalpha = ((cr - ar_n) * g_r + (cg - ag_n) * g_g + (cb - ab_n) * g_b
+              + (dep - ad_n) * g_d) * T
+    bg_coef = torch.where(a == 1.0, -fpT, -fT / one_m_a)
+    dalpha = dalpha + bg_coef * bg_dot
+
+    cu = [(c[3 + k] - c[k]) * inten for k in range(3)]
+    cv = [(c[6 + k] - c[k]) * inten for k in range(3)]
+    dL_duc = (cu[0] * dic_r + cu[1] * dic_g + cu[2] * dic_b
+              + (dd[1] - dd[0]) * did)
+    dL_dvc = (cv[0] * dic_r + cv[1] * dic_g + cv[2] * dic_b
+              + (dd[2] - dd[0]) * did)
+    duc_du, duc_dv, dvc_du, dvc_dv = clamp_bary_uv_grad(code)
+    dL_du = dL_duc * duc_du + dL_dvc * dvc_du
+    dL_dv = dL_duc * duc_dv + dL_dvc * dvc_dv
+
+    den2 = denom * denom
+    inv2 = torch.reciprocal(torch.where(den2 == 0.0, 1.0, den2))
+    v0 = u * denom
+    v2n = qx * e2x + qy * e2y + qz * e2z
+    a_m = -(dL_du * v0 + dL_dv * v2n) * inv2
+    b_m = dL_dv * denom * inv2
+    c_m = dL_du * denom * inv2
+
+    vals = torch.stack([
+        dalpha, b_m, a_m * dx, a_m * dy, a_m * dz, c_m * dx, c_m * dy,
+        c_m * dz,
+        i0 * dic_r, i0 * dic_g, i0 * dic_b, i1 * dic_r, i1 * dic_g,
+        i1 * dic_b, i2 * dic_r, i2 * dic_g, i2 * dic_b,
+        i0 * did, i1 * did, i2 * did], dim=1)
+    vals = torch.where(active[:, None], vals, 0.0)
+
+    m = active
+    new = {
+        "T": T, "first": s["first"] & ~m,
+        "la": torch.where(m, a, la),
+        "lr": torch.where(m, cr, s["lr"]), "lg": torch.where(m, cg, s["lg"]),
+        "lb": torch.where(m, cb, s["lb"]), "ld": torch.where(m, dep, s["ld"]),
+        "ar": torch.where(m, ar_n, s["ar"]),
+        "ag": torch.where(m, ag_n, s["ag"]),
+        "ab": torch.where(m, ab_n, s["ab"]),
+        "ad": torch.where(m, ad_n, s["ad"]),
+    }
+    return vals, new, active.any(dim=1)
+
+
+def _record_from_sums(S, f):
+    """[nL, 20] block sums + the face rows [nL, 27] -> records [nL, 22]:
+    dalpha, dL/dp0..dp2 rebuilt from the moments, the colour and depth
+    moments. S(w (d x e2)) = S(w d) x e2 and the like."""
+    S_b = S[:, 1]
+    S_ax, S_ay, S_az = S[:, 2], S[:, 3], S[:, 4]
+    S_cx, S_cy, S_cz = S[:, 5], S[:, 6], S[:, 7]
+    e1x, e1y, e1z = f[:, _E1], f[:, _E1 + 1], f[:, _E1 + 2]
+    e2x, e2y, e2z = f[:, _E2], f[:, _E2 + 1], f[:, _E2 + 2]
+    tvx, tvy, tvz = f[:, _TV], f[:, _TV + 1], f[:, _TV + 2]
+    qx, qy, qz = f[:, _QV], f[:, _QV + 1], f[:, _QV + 2]
+    aRx = S_ay * e2z - S_az * e2y
+    aRy = S_az * e2x - S_ax * e2z
+    aRz = S_ax * e2y - S_ay * e2x
+    cRx = S_cy * e2z - S_cz * e2y
+    cRy = S_cz * e2x - S_cx * e2z
+    cRz = S_cx * e2y - S_cy * e2x
+    aEx = e1y * S_az - e1z * S_ay
+    aEy = e1z * S_ax - e1x * S_az
+    aEz = e1x * S_ay - e1y * S_ax
+    cXx = tvy * S_cz - tvz * S_cy
+    cXy = tvz * S_cx - tvx * S_cz
+    cXz = tvx * S_cy - tvy * S_cx
+    e2xtx = e2y * tvz - e2z * tvy
+    e2xty = e2z * tvx - e2x * tvz
+    e2xtz = e2x * tvy - e2y * tvx
+    e12x = e1y * e2z - e1z * e2y
+    e12y = e1z * e2x - e1x * e2z
+    e12z = e1x * e2y - e1y * e2x
+    gp1 = [aRx + S_b * e2xtx, aRy + S_b * e2xty, aRz + S_b * e2xtz]
+    gp2 = [cXx + aEx + S_b * qx, cXy + aEy + S_b * qy, cXz + aEz + S_b * qz]
+    gt = [cRx + S_b * e12x, cRy + S_b * e12y, cRz + S_b * e12z]
+    gp0 = [-gp1[i] - gp2[i] - gt[i] for i in range(3)]
+    return torch.cat([torch.stack([S[:, 0], *gp0, *gp1, *gp2], dim=1),
+                      S[:, 8:]], dim=1)
+
+
+def upstream_planes(dL_dcolor, dL_ddepth, bg):
+    """``bwd_composite``'s gin [B, 5, H, W] from dL/dcolor [B, 3, H, W],
+    dL/ddepth [B, 1, H, W] and bg [3]: rgb, depth, bg . dL/dC + dL/dD."""
+    gdep = dL_ddepth[:, 0]
+    bg_dot = (bg[0] * dL_dcolor[:, 0] + bg[1] * dL_dcolor[:, 1]
+              + bg[2] * dL_dcolor[:, 2]) + gdep
+    return torch.stack([dL_dcolor[:, 0], dL_dcolor[:, 1], dL_dcolor[:, 2],
+                        gdep, bg_dot], dim=1)
+
+
+def reduce_records(rec, slot_face, sigma, face_f32_sorted, faces,
+                   faces_intense, n_verts: int):
+    """Per-slot records -> the five gradients.
+
+    ``rec`` [S, 4, 22] from ``bwd_composite``; ``slot_face`` and ``sigma``
+    the forward's ``BinnedKeys`` fields; ``face_f32_sorted`` the
+    depth-sorted face table the kernels read; faces [F, 3]; faces_intense
+    [B, F]. ``records_to_faces``, then ``faces_to_verts``. Returns
+    (g_verts [P, 3], g_vcolor [P, 3], g_fopacity [F], g_vdepth [B, P],
+    g_fintense [B, F])."""
+    g_fopacity, g_p, g_vc, g_vd, g_fintense = records_to_faces(
+        rec, slot_face, sigma, face_f32_sorted, faces_intense)
+    g_verts, g_vcolor, g_vdepth = faces_to_verts(faces, n_verts, g_p, g_vc,
+                                                 g_vd)
+    return g_verts, g_vcolor, g_fopacity, g_vdepth, g_fintense
+
+
+def records_to_faces(rec, slot_face, sigma, face_f32_sorted,
+                     faces_intense):
+    """The record reduce: records summed per depth-sorted row in slot
+    order (segment sum), un-permuted to (view, face) through ``sigma``, and
+    summed over views where the parameter is shared.
+    Returns (g_fopacity [F], g_p [F, 3, 3], g_vc [F, 3, 3] per face corner,
+    g_vd [B, F, 3], g_fintense [B, F])."""
+    B, F = faces_intense.shape
+    csr = segment_csr(slot_face, B * F, inner=4)
+    g = seg_sum(rec.reshape(-1, REC_COLS), csr)  # [B*F, 22], sorted rows
+    # dL/dintensity = sum_k,c colour[k, c] * (sum_p i_k dL/dcolor_c)
+    c = face_f32_sorted[:, _C0:_C0 + 9]
+    gint = c[:, 0] * g[:, _G_VC]
+    for j in range(1, 9):
+        gint = gint + c[:, j] * g[:, _G_VC + j]
+    g = torch.cat([g, gint[:, None]], dim=1)
+    face_g = torch.empty_like(g).index_copy_(0, sigma, g) \
+        .reshape(B, F, REC_COLS + 1)
+    g_fopacity = face_g[..., _G_ALPHA].sum(0)
+    g_p = face_g[..., _G_P:_G_P + 9].sum(0).reshape(F, 3, 3)
+    g_vc = (face_g[..., _G_VC:_G_VC + 9] * faces_intense[..., None]) \
+        .sum(0).reshape(F, 3, 3)
+    g_vd = face_g[..., _G_VD:_G_VD + 3]
+    g_fintense = face_g[..., REC_COLS]
+    return g_fopacity, g_p, g_vc, g_vd, g_fintense
+
+
+def _forward(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+             inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
+             height, width, kcap, run_cap):
+    """The binned forward: (color, depth, keys, the kernels' inputs and K1's
+    state), the last two being what the backward needs."""
     if faces.shape[0] == 0:
         raise ValueError(
             "render_tri_binned requires at least one face; the strategy "
@@ -249,11 +594,70 @@ def render_tri_binned(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
         verts, faces, verts_color, faces_opacity, verts_depth, faces_intense,
         img, inv_mv_t[:, 3, :3])
     _ray_o, ray_d = generate_rays(inv_mv_t, inv_proj_t, width, height)
-    C, D, T, _pT, _nc = fwd_composite(
-        keys.starts, keys.ends, keys.slot_face, face_f32[keys.sigma],
-        face_i32[keys.sigma], ray_d, B, height, width)
+    inputs = (keys.starts, keys.ends, keys.slot_face, face_f32[keys.sigma],
+              face_i32[keys.sigma], ray_d, B, height, width)
+    C, D, T, pT, nc = fwd_composite(*inputs)
     color = C + T[:, None] * bg[None, :, None, None]
     depth = (D + T * 1.0)[:, None]
+    return color, depth, keys, inputs, (T, pT, nc)
+
+
+class _RenderTriBinned(torch.autograd.Function):
+    """The binned renderer as an autograd Function. The forward keeps the
+    keys, the depth-sorted face tables, the rays and K1's state, so the
+    backward neither projects, bins nor sorts again; the backward runs K2
+    and the record reduce. Gradients for verts, verts_color,
+    faces_opacity, verts_depth and faces_intense; None for faces, the
+    matrices and bg."""
+
+    @staticmethod
+    def forward(ctx, verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+                inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
+                height, width, kcap, run_cap):
+        color, depth, keys, inputs, state = _forward(
+            verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+            inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg, height,
+            width, kcap, run_cap)
+        ctx.save_for_backward(*inputs[:6], *state, keys.sigma, faces,
+                              faces_intense, bg)
+        ctx.n_verts = verts.shape[0]
+        ctx.mark_non_differentiable(keys.overflow, keys.total)
+        return color, depth, keys.overflow, keys.total
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dL_dcolor, dL_ddepth, _d_overflow, _d_total):
+        (starts, ends, slot_face, ff, fi, ray_d, T, pT, nc, sigma, faces,
+         faces_intense, bg) = ctx.saved_tensors
+        B, H, W = T.shape
+        rec = bwd_composite(starts, ends, slot_face, ff, fi, ray_d, T, pT,
+                            nc, upstream_planes(dL_dcolor, dL_ddepth, bg),
+                            B, H, W)
+        g_verts, g_vcolor, g_fop, g_vdepth, g_fint = reduce_records(
+            rec, slot_face, sigma, ff, faces, faces_intense, ctx.n_verts)
+        return (g_verts, None, g_vcolor, g_fop, None, None, None, None,
+                g_vdepth, g_fint, None, None, None, None, None)
+
+
+def render_tri_binned(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+                      inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
+                      height: int, width: int, kcap: int | None = None,
+                      with_aux: bool = False, run_cap: int | None = None):
+    """Tile-binned tri renderer.
+
+    ``kcap``: (face, tile) key capacity (None: ``default_key_capacity``);
+    ``run_cap``: (face, tile-row) run capacity (None: heuristic). Pairs
+    past a capacity are dropped farthest first (see ops/binning.py).
+    Returns (color [B, 3, H, W], depth [B, 1, H, W]) and, with
+    ``with_aux``, ``(overflow bool[], num_rendered int[])``.
+
+    Differentiable in verts, verts_color, faces_opacity, verts_depth and
+    faces_intense when any of them requires grad; otherwise autograd
+    records nothing and the forward's residuals are freed on return."""
+    color, depth, overflow, total = _RenderTriBinned.apply(
+        verts, faces, verts_color, faces_opacity, mv_t, proj_t, inv_mv_t,
+        inv_proj_t, verts_depth, faces_intense, bg, height, width, kcap,
+        run_cap)
     if with_aux:
-        return color, depth, (keys.overflow, keys.total)
+        return color, depth, (overflow, total)
     return color, depth

@@ -3,7 +3,8 @@
 ``TriRenderer``/``render_tri`` with torch CPU tensors and ``device="cpu"``
 must match the JAX package's within 1e-4 relative (the tolerance of
 test_golden.py for the binned path), aux outputs included; empty geometry,
-casts, shape errors, gradients and the CUDA request behave as specified.
+casts, shape errors and the CUDA request behave as specified, and the
+gradients match the JAX package's torch bridge.
 """
 
 import numpy as np
@@ -124,14 +125,41 @@ def test_faces_int64_and_shape_errors(soup):
         r(*args[:7], args[7][:1])
 
 
-def test_requires_grad_raises(soup):
-    r = tdr.TriRenderer(tdr.TriRenderSettings(H, W, BG), device="cpu")
-    args = _torch(soup)
-    for i in (0, 2, 3, 6, 7):
-        a = list(args)
-        a[i] = a[i].clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="_bwd_kernel"):
-            r(*a)
+@pytest.mark.parametrize("strategy", ["oracle", "binned"])
+def test_grads_match_jax_torch_bridge(soup, strategy, monkeypatch):
+    """The same torch leaf tensors through the JAX package's TriRenderer
+    (its torch autograd bridge) and the port's, the same loss, then
+    ``.backward()``: the five ``.grad`` agree within 1e-4 relative, and
+    faces and the matrices get none. ``binned`` sets both dispatch
+    thresholds to 0 (and a key capacity, so that the bridge traces anew)."""
+    kcap = None
+    if strategy == "binned":
+        import dmesh_renderer_tpu.ops.tri as jtri
+
+        kcap = 8192
+        monkeypatch.setattr(jtri, "BINNED_THRESHOLD_CPU", 0)
+        monkeypatch.setattr(ttri, "BINNED_THRESHOLD_CPU", 0)
+    rng = np.random.RandomState(17)
+    wc = torch.from_numpy(rng.randn(B, 3, H, W).astype(np.float32))
+    wd = torch.from_numpy(rng.randn(B, 1, H, W).astype(np.float32))
+    grads = []
+    for pkg in (jdr, tdr):
+        args = _torch(soup)
+        args[1] = args[1].long()
+        for i in (0, 2, 3, 6, 7):
+            args[i].requires_grad_(True)
+        args[4].requires_grad_(pkg is tdr)  # a matrix: no gradient
+        settings = pkg.TriRenderSettings(H, W, BG, kcap)
+        kw = {"device": "cpu"} if pkg is tdr else {}
+        c, d = pkg.TriRenderer(settings, **kw)(*args)
+        ((c * wc).sum() + (d * d * wd).sum()).backward()
+        grads.append([args[i].grad for i in (0, 2, 3, 6, 7)])
+        if pkg is tdr:
+            assert args[4].grad is None
+    for gj, gt in zip(*grads):
+        assert gt is not None and gt.shape == gj.shape
+        assert _rel(gt.numpy(), gj.numpy()) <= 1e-4
+    assert any(bool(g.any()) for g in grads[1])
 
 
 def test_cuda_without_card_raises(soup, monkeypatch):
