@@ -1,5 +1,5 @@
-"""Drive the torch port's tri renderer, forward and backward, on one CUDA
-card and check it.
+"""Drive the torch port's tri renderer (forward and backward) and tet
+renderer (forward) on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -34,7 +34,21 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 10. ``models.dmesh.make_train_step`` with Adam(1e-2) at the headline (zero
     target and background), 5 steps: the loss falls;
 11. the B=2 scene (20k triangles, 800x800) with gradients;
-12. print one JSON line of per-kernel numbers, and as the last line
+12. hold the tet first-hit kernel (K3, ``first_hit``) and march kernel (K4,
+    ``fwd_march``) against their plain versions at a small scene
+    (``freudenthal_grid(6, 0.14, 21)``, 256x256, B=2, ray seed 17) and at
+    the tet headline (``freudenthal_grid(20, 0.15, 2)``: 98,400 faces,
+    48,000 tets, 800x800, B=1); work out their bounds from the run's counts;
+13. drive the tet serving path, ``TetRenderer`` on the card at the tet
+    headline, counts set to 0 just before and read just after (K3 and K4
+    once each); check the pair count (321,998, no overflow) and the
+    first-hit pixels (577,342) exactly, and print the active pixels, the
+    longest walk and the blend events beside the JAX package's CPU values;
+    time it (2 warm-up, 10 timed runs) and split it by stage;
+14. the tet edge cases on the card: the dense first hit (<= 2048 faces)
+    against the forced binned one, B=2 at the headline grid, jittered rays
+    bit-equal to the CPU's, and the empty-geometry fill;
+15. print one JSON line of per-kernel numbers, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -82,6 +96,31 @@ OPS_PER_HIT = 69
 OPS_PER_BWD_ACTIVE = 175
 OPS_PER_LIVE_SLOT = 20 * 255 + 60
 FACE_ROW_BYTES = (27 + 9) * 4 + 4  # f32 + i32 face row, and its slot_face
+
+# The tet scenes: (grid n, jitter, grid seed, views, H, W, ray seed); the
+# headline is the JAX package's tet bench scene (bench.py, bench_tet_scaled)
+TET_HEADLINE = dict(n_grid=20, n_views=1, height=800, width=800)
+TET_SMALL = (6, 0.14, 21, 2, 256, 256, 17)
+TET_DENSE = (5, 0.1, 8, 2, 256, 256, 0)  # 1,950 faces: the dense first hit
+# Facts of the tet headline, not times: the (face, tile) pairs of its bbox
+# emission at 32-px tiles (the JAX package's count), and the pixels with a
+# first hit, which no transcendental enters, so the count is exact
+TET_HEADLINE_PAIRS = 321_998
+TET_HEADLINE_HIT_PIXELS = 577_342
+# The JAX package's forward of the tet headline on the CPU (max_steps 512),
+# printed beside the card's: active pixels, the longest walk, blend events
+JAX_CPU_ACTIVE = 577_337
+JAX_CPU_MAX_WALK = 17
+JAX_CPU_BLENDS = 5_370_194
+TET_TOL = 1e-6  # K3/K4 against plain: the same f32 ops in the same order
+# f32 operations: a K3 (pixel, slot) visit (depth window 2, Moller-Trumbore
+# 33, hit tests 6); a K4 blend (colour 21, weight 1, depth 9, log T 2, exp
+# 1, accumulators 8, termination 2) and a K4 walk step (4 slots x (normal
+# 27, Moller-Trumbore 51, selection 5))
+OPS_PER_FH_VISIT = 41
+OPS_PER_BLEND = 44
+OPS_PER_WALK = 4 * (27 + 51 + 5)
+FH_ROW_BYTES = 16 * 4 + 4  # first-hit table row and its slot_face entry
 
 
 def log(*a):
@@ -329,6 +368,368 @@ def leaves_of(user):
     """Fresh leaf copies of the five differentiable user inputs."""
     return [user[i].detach().clone().requires_grad_(True)
             for i in (0, 2, 3, 6, 7)]
+
+
+def tet_user(n_grid, n_views, jitter, gseed, dev, seed_offset=0):
+    """A tet scene as CUDA tensors: (user inputs of TetRenderer, the
+    functional args with transposed matrices and inverses, bg)."""
+    from dmesh_renderer_tpu_torch.utils import connectivity, scenes
+
+    if (jitter, gseed) == (0.15, 2):
+        arrs = scenes.tet_scene(n_grid, n_views, 0, 0)
+    else:
+        v, tets = connectivity.freudenthal_grid(n_grid, jitter, gseed)
+        f, ft, tf = connectivity.build_tet_connectivity(tets)
+        rng = np.random.RandomState(33 + seed_offset)
+        vc = rng.rand(v.shape[0], 3).astype(np.float32)
+        fo = rng.uniform(0.05, 0.95, f.shape[0]).astype(np.float32)
+        fo[rng.randint(0, f.shape[0], f.shape[0] // 10)] = 1.0
+        fi = rng.uniform(0.5, 1.0, (n_views, f.shape[0])).astype(np.float32)
+        mv, proj = scenes.ring_cameras(n_views)
+        arrs = (v, f, vc, fo, mv, proj,
+                np.zeros((n_views, v.shape[0]), np.float32), fi, tets, ft, tf,
+                np.array([0.1, 0.2, 0.3], np.float32))
+    user = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in arrs[:11]]
+    bg = torch.from_numpy(arrs[11]).to(dev)
+    mv_t = user[4].transpose(1, 2).contiguous()
+    proj_t = user[5].transpose(1, 2).contiguous()
+    fargs = (user[0], user[1], user[2], user[3], mv_t, proj_t,
+             torch.linalg.inv(mv_t), torch.linalg.inv(proj_t), user[7],
+             user[8], user[9], user[10], bg)
+    return user, fargs, bg
+
+
+def tet_stages(fargs, h, w, seed=0):
+    """The tet forward's stages (the sequence of
+    ops.tet.render_tet_forward on its binned path), one function each, so
+    that each can be timed; and the inputs of K3 and K4."""
+    from dmesh_renderer_tpu_torch.ops import binning, geometry, rays
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+    from dmesh_renderer_tpu_torch.ops import tet_first_hit as pfh
+
+    (verts, faces, vc, fo, mv_t, proj_t, inv_mv_t, inv_proj_t, fi, tets,
+     face_tets, tet_faces, bg) = fargs
+    B, F = mv_t.shape[0], faces.shape[0]
+    N, M = h * w, mv_t.shape[0] * h * w
+    gx, gy = (w + 31) // 32, (h + 31) // 32
+    kcap = binning.default_key_capacity(B, F, avg_tiles_per_face=5)
+    cam_o = inv_mv_t[:, 3, :3].contiguous()
+    st = {}
+
+    def project():
+        ndc, img = geometry.project_verts(verts, mv_t, proj_t, w, h)
+        st["pre"] = geometry.preprocess_faces(ndc, img, faces, w, h, 32, 32)
+
+    def binning_():
+        st["keys"] = binning.emit_and_sort(st["pre"], gx, gy, kcap,
+                                           sort_by="min_depth")
+
+    def table():
+        st["table"] = pfh.build_first_hit_table(
+            verts, faces, cam_o, st["pre"]["min_depth"],
+            st["pre"]["max_depth"])[st["keys"].sigma]
+
+    def rays_():
+        st["rd"] = rays.generate_rays(inv_mv_t, inv_proj_t, w, h,
+                                      norm_eps_mode="tet",
+                                      jitter_seed=seed or None)[1]
+
+    def fh_inputs():
+        k = st["keys"]
+        return (k.starts, k.ends, k.slot_face, st["table"], st["rd"], B, h, w)
+
+    def k3():
+        st["fh"] = pfh.first_hit(*fh_inputs())
+
+    def tables():
+        st["march"] = m = pt.march_tables(verts, faces, tets, tet_faces,
+                                          face_tets, vc, fo, fi)
+        st["ff"] = st["fh"][0].reshape(M)
+        st["first_tet"] = pt.start_tets(st["ff"], st["rd"].reshape(M, 3),
+                                        m["geo"], m["sign"], face_tets,
+                                        tet_faces)
+        st["zw"] = pt.projective_zw(cam_o, st["rd"].reshape(B, N, 3), mv_t,
+                                    proj_t)
+        st["tuv"] = torch.stack([x.reshape(M) for x in st["fh"][1:4]])
+
+    def march_inputs():
+        m = st["march"]
+        return (st["rd"].reshape(M, 3), cam_o, st["zw"], st["ff"],
+                st["first_tet"], st["tuv"], m["tet_geo"], m["tet_ids"],
+                m["shade"], N)
+
+    def k4():
+        st["out"] = pt.fwd_march(*march_inputs())
+
+    def assemble():
+        out_f, out_i = st["out"]
+        act = out_i[3] != 0
+        final_T = torch.exp(out_f[4])
+        col = [torch.where(act, out_f[c] + final_T * bg[c], bg[c])
+               for c in range(3)]
+        st["image"] = (
+            torch.stack(col).reshape(3, B, h, w).transpose(0, 1).contiguous(),
+            torch.where(act, out_f[3] + final_T * 1.0, 1.0).reshape(
+                B, 1, h, w), act.reshape(B, h, w))
+
+    seq = [("projection+preprocess", project), ("binning", binning_),
+           ("first-hit table", table), ("rays", rays_), ("K3", k3),
+           ("march tables+start tet", tables), ("K4", k4),
+           ("assembly", assemble)]
+    return seq, st, fh_inputs, march_inputs
+
+
+def compare_tet_kernels(fh_inputs, march_inputs, label):
+    """K3 and K4 against their plain versions on the same CUDA inputs.
+    Returns (max abs error, K3's output, the plain K3's per-pixel visits,
+    K4's output, whether each kernel was bit-equal)."""
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+    from dmesh_renderer_tpu_torch.ops import tet_first_hit as pfh
+
+    b3, b4 = pfh.first_hit.launches, pt.fwd_march.launches
+    g3 = pfh.first_hit(*fh_inputs)
+    torch.cuda.synchronize()
+    check(pfh.first_hit.launches == b3 + 1, "K3 did not launch")
+    *p3, visits = pfh.first_hit_plain(*fh_inputs, with_visits=True)
+    check(torch.equal(g3[0], p3[0]), f"{label}: K3 first_face differs")
+    check(torch.equal(g3[4], p3[4]), f"{label}: K3 walked differs")
+    err3 = max(float((a - b).abs().max()) for a, b in zip(g3[1:4], p3[1:4]))
+    check(np.isfinite(err3) and err3 <= TET_TOL, f"{label}: K3 tuv {err3}")
+    eq3 = all(torch.equal(a, b) for a, b in zip(g3, p3))
+    g4 = pt.fwd_march(*march_inputs)
+    torch.cuda.synchronize()
+    check(pt.fwd_march.launches == b4 + 1, "K4 did not launch")
+    p4 = pt.fwd_march_plain(*march_inputs)
+    check(torch.equal(g4[1], p4[1]),
+          f"{label}: K4 last face/last tet/n_contrib/active differ")
+    err4 = float((g4[0] - p4[0]).abs().max())
+    check(np.isfinite(err4) and err4 <= TET_TOL, f"{label}: K4 err {err4}")
+    eq4 = torch.equal(g4[0], p4[0])
+    log(f"K3 vs plain [{label}]: first_face, walked equal; t/u/v max_abs_err "
+        f"{err3:.3g} (tol {TET_TOL}); bit-equal {eq3}")
+    log(f"K4 vs plain [{label}]: last face, last tet, n_contrib, active "
+        f"equal; C/D/logT max_abs_err {err4:.3g} (tol {TET_TOL}); bit-equal "
+        f"{eq4}")
+    return max(err3, err4), g3, visits, g4, (eq3, eq4)
+
+
+def tet_phases(dev):
+    """Phases 12-14: the tet kernels, the tet serving path and its edge
+    cases. Returns (the kernels' JSON entries, a dict of tet numbers)."""
+    import dmesh_renderer_tpu_torch as port
+    from dmesh_renderer_tpu_torch.ops import reduce as rd
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+    from dmesh_renderer_tpu_torch.ops import tet_first_hit as pfh
+    from dmesh_renderer_tpu_torch.ops import tri_binned as tb
+
+    # ---- K3 and K4 against plain: the small scene, then the headline
+    n, jit, gs, b, hs, ws, seed = TET_SMALL
+    _u, fs, _bg = tet_user(n, b, jit, gs, dev)
+    seq_s, _st, fh_s, mi_s = tet_stages(fs, hs, ws, seed)
+    for _n, fn in seq_s[:-1]:
+        fn()
+    err_s, _g3, _v, _g4, eq_s = compare_tet_kernels(
+        fh_s(), mi_s(), f"freudenthal_grid(6), {hs}x{ws}, B=2, seed 17")
+
+    H, W = TET_HEADLINE["height"], TET_HEADLINE["width"]
+    user, fargs, bg = tet_user(TET_HEADLINE["n_grid"], 1, 0.15, 2, dev)
+    seq, st, fh_in, m_in = tet_stages(fargs, H, W)
+    for _n, fn in seq[:-1]:
+        fn()
+    err_h, g3, visits, g4, eq_h = compare_tet_kernels(fh_in(), m_in(),
+                                                      "tet headline")
+    k3_ms = cuda_ms(lambda: pfh.first_hit(*fh_in()), 2, 10)
+    k3_plain_ms = cuda_ms(lambda: pfh.first_hit_plain(*fh_in()), 0, 2)
+    k4_ms = cuda_ms(lambda: pt.fwd_march(*m_in()), 2, 10)
+    k4_plain_ms = cuda_ms(lambda: pt.fwd_march_plain(*m_in()), 0, 2)
+
+    # ---- the bounds of K3 and K4 on this run's data
+    keys = st["keys"]
+    n_pix = H * W
+    n_pairs = int(keys.total)
+    walked = int(g3[4].long().sum())
+    n_visits = int(visits.sum())
+    # the slots a tile needs: as many as its pixels' longest list walk
+    # (the headline's 800x800 is a whole number of 32-px tiles)
+    need = visits.reshape(1, H // 32, 32, W // 32, 32).amax(dim=(2, 4))
+    need_slots = int(need.sum())
+    k3_bytes = (keys.starts.numel() * 8 + need_slots * FH_ROW_BYTES
+                + n_pix * 12 + n_pix * 16)
+    k3_bound, k3_by, k3_ops_ms, k3_bytes_ms = bound(
+        n_visits * OPS_PER_FH_VISIT, k3_bytes)
+    out_f, out_i = g4
+    nc = out_i[2].long()
+    blends = int(nc.sum())
+    n_active = int(out_i[3].sum())
+    walks = blends - n_active  # every blend but an active ray's last walks
+    m = st["march"]
+    # per ray the inputs (ray 12, zw 16, first face/tet 8, t/u/v 12) and
+    # outputs (40); the tet and shade tables read once
+    k4_bytes = (n_pix * (12 + 16 + 8 + 12 + 40) + m["tet_geo"].numel() * 4
+                + m["tet_ids"].numel() * 4 + m["shade"].numel() * 4)
+    k4_bound, k4_by, k4_ops_ms, k4_bytes_ms = bound(
+        blends * OPS_PER_BLEND + walks * OPS_PER_WALK, k4_bytes)
+    log(f"K3 at tet headline: {k3_ms:.4f} ms; plain {k3_plain_ms:.2f} ms. "
+        f"Work: {n_pairs} pairs, {walked} slots staged, {need_slots} slots "
+        f"needed, {n_visits} (pixel, face) tests -> {k3_ops_ms:.4f} ms; "
+        f"{k3_bytes} bytes -> {k3_bytes_ms:.4f} ms; bound {k3_bound:.4f} ms "
+        f"by {k3_by}")
+    log(f"K4 at tet headline: {k4_ms:.4f} ms; plain {k4_plain_ms:.2f} ms. "
+        f"Work: {blends} blends, {walks} walk steps -> {k4_ops_ms:.4f} ms; "
+        f"{k4_bytes} bytes -> {k4_bytes_ms:.4f} ms; bound {k4_bound:.4f} ms "
+        f"by {k4_by}")
+
+    # ---- the tet serving path: TetRenderer on the card at the headline
+    settings = port.TetRenderSettings(H, W, bg)
+    renderer = port.TetRenderer(settings, device="cuda")
+    counts = (tb.fwd_composite, tb.bwd_composite, rd.seg_sum, pfh.first_hit,
+              pt.fwd_march)
+    for c in counts:
+        c.launches = 0
+    color, depth, active, (ovf, n_rendered) = renderer(*user, return_aux=True)
+    torch.cuda.synchronize()
+    launches = {"tet_first_hit": pfh.first_hit.launches,
+                "tet_fwd_march": pt.fwd_march.launches}
+    check(launches == {"tet_first_hit": 1, "tet_fwd_march": 1},
+          f"tet serving path launches {launches}")
+    check(all(c.launches == 0 for c in counts[:3]),
+          "tet serving path ran a tri kernel")
+    check(color.shape == (1, 3, H, W) and depth.shape == (1, 1, H, W)
+          and active.shape == (1, H, W), "tet output shapes")
+    check(bool(torch.isfinite(color).all() and torch.isfinite(depth).all()),
+          "tet output not finite")
+    check(float(color.min()) >= 0.0 and float(color.max()) <= 1.0 + 1e-5,
+          "tet colour out of range")
+    check(not bool(ovf), "tet key capacity overflow at the headline")
+    check(int(n_rendered) == TET_HEADLINE_PAIRS,
+          f"tet pairs {int(n_rendered)} != {TET_HEADLINE_PAIRS}")
+    hit_pixels = int((g3[0] >= 0).sum())
+    check(hit_pixels == TET_HEADLINE_HIT_PIXELS,
+          f"first-hit pixels {hit_pixels} != {TET_HEADLINE_HIT_PIXELS}")
+    n_act = int(active.sum())
+    max_walk = int(nc.max())
+    check(n_act == n_active, "TetRenderer and the staged K4 disagree")
+    seq[-1][1]()
+    img = st["image"]
+    check(torch.equal(img[0], color) and torch.equal(img[1], depth)
+          and torch.equal(img[2], active),
+          "staged tet pipeline differs from TetRenderer")
+    log(f"tet serving path: launches {launches}; pairs {int(n_rendered)} "
+        f"(overflow {bool(ovf)}); first-hit pixels {hit_pixels}; active "
+        f"pixels {n_act} (JAX on the CPU: {JAX_CPU_ACTIVE}); longest walk "
+        f"{max_walk} (JAX: {JAX_CPU_MAX_WALK}); blend events {blends} (JAX: "
+        f"{JAX_CPU_BLENDS}); rays blending > 8 faces {int((nc > 8).sum())}, "
+        f"> 11 faces {int((nc > 11).sum())}")
+    tet_ms = cuda_ms(lambda: renderer(*user), 2, 10)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    renderer(*user)
+    torch.cuda.synchronize()
+    tet_peak = torch.cuda.max_memory_allocated() - base_mem
+    split = {nm: cuda_ms(fn, 1, 5) for nm, fn in seq}
+    log(f"tet forward: {tet_ms:.3f} ms/frame (peak extra memory "
+        f"{tet_peak / 2**20:.1f} MiB); stage split (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+
+    # the card against the port on the CPU, same inputs (after the timing:
+    # the CPU run's threads would disturb it): every stage but
+    # the march tables' log column and K4's exp is bit-equal on both
+    # (tests/test_torch_gpu_tet.py), so a pixel may differ only where log T
+    # crosses log(T_EPS) at another step on the two devices
+    _c, _d, act_cpu, sv_cpu = pt.render_tet_forward(
+        *[x.cpu() for x in fargs], H, W, 0)
+    card_nc, card_act = out_i[2].cpu(), out_i[3].cpu() != 0
+    cpu_nc, cpu_act = sv_cpu["n_contrib"].reshape(-1), act_cpu.reshape(-1)
+    differ = (card_nc != cpu_nc) | (card_act != cpu_act)
+    near = torch.zeros_like(differ)
+    log_teps = float(np.log(np.float32(1e-4)))
+    for lt in (out_f[4].cpu(), out_f[5].cpu(), sv_cpu["final_log_T"],
+               sv_cpu["final_prev_log_T"]):
+        near |= (lt.reshape(-1) - log_teps).abs() <= 1e-5
+    n_diff, n_near = int(differ.sum()), int((differ & near).sum())
+    check(torch.equal(sv_cpu["first_face"].reshape(-1).to(dev), st["ff"]),
+          "first hit differs card vs CPU")
+    log(f"tet card vs the port on the CPU at the headline: active {n_act} vs "
+        f"{int(cpu_act.sum())}, blend events {blends} vs "
+        f"{int(cpu_nc.sum())}; {n_diff} pixels differ in n_contrib or "
+        f"active, {n_near} of them with log T within 1e-5 of log(T_EPS) on "
+        f"a device (the two devices' exp/log differ in the last bits)")
+
+    # ---- the tet edge cases on the card
+    n, jit, gs, b, hd, wd, _seed = TET_DENSE
+    ud, fd, _bgd = tet_user(n, b, jit, gs, dev, seed_offset=1)
+    check(fd[1].shape[0] <= pt.BINNED_FIRST_HIT_THRESHOLD, "dense scene size")
+    dense = pt.render_tet_forward(*fd, hd, wd, 0)
+    saved_thr = pt.BINNED_FIRST_HIT_THRESHOLD
+    pt.BINNED_FIRST_HIT_THRESHOLD = 1
+    try:
+        before = pfh.first_hit.launches
+        binned = pt.render_tet_forward(*fd, hd, wd, 0)
+        check(pfh.first_hit.launches == before + 1, "forced binned: no K3")
+    finally:
+        pt.BINNED_FIRST_HIT_THRESHOLD = saved_thr
+    check(torch.equal(dense[2], binned[2]), "dense vs binned active differ")
+    for k in ("first_face", "last_face", "last_tet", "n_contrib"):
+        check(torch.equal(dense[3][k], binned[3][k]), f"dense vs binned {k}")
+    e_db = max(float((dense[i] - binned[i]).abs().max()) for i in (0, 1))
+    check(e_db <= 1e-6, f"dense vs binned colour/depth {e_db}")
+    u2, f2, _bg2 = tet_user(TET_HEADLINE["n_grid"], 2, 0.15, 2, dev)
+    before = (pfh.first_hit.launches, pt.fwd_march.launches)
+    c2, d2, a2 = port.TetRenderer(port.TetRenderSettings(H, W, bg), "cuda")(
+        *u2)
+    torch.cuda.synchronize()
+    check((pfh.first_hit.launches, pt.fwd_march.launches)
+          == (before[0] + 1, before[1] + 1), "B=2 tet: K3/K4 not once each")
+    check(c2.shape == (2, 3, H, W) and bool(torch.isfinite(c2).all())
+          and bool(a2[0].any() and a2[1].any()), "B=2 tet outputs")
+    check(torch.equal(a2[0], active[0]), "B=2 view 0 active differs from B=1")
+    from dmesh_renderer_tpu_torch.ops import rays
+
+    inv_c = [x.cpu() for x in f2[6:8]]
+    rj = rays.generate_rays(*f2[6:8], W, H, norm_eps_mode="tet",
+                            jitter_seed=17, view_offset=3)[1]
+    rc = rays.generate_rays(*inv_c, W, H, norm_eps_mode="tet",
+                            jitter_seed=17, view_offset=3)[1]
+    check(torch.equal(rj.cpu(), rc), "jittered rays differ card vs CPU")
+    r_small = port.TetRenderer(port.TetRenderSettings(64, 48, bg), "cuda")
+    u = user
+    ce, de, ae, (oe, ne) = r_small(u[0], u[1][:0], u[2], u[3][:0], u[4],
+                                   u[5], u[6], u[7][:, :0], u[8], u[9][:0],
+                                   u[10], return_aux=True)
+    check(bool((ce == bg[None, :, None, None]).all() and (de == 1).all()
+               and not ae.any()) and (bool(oe), int(ne)) == (False, 0),
+          "empty tet geometry must give bg, depth 1, inactive, (False, 0)")
+    log(f"tet edge cases: dense (F={fd[1].shape[0]}) vs forced binned at "
+        f"{hd}x{wd}, B=2: active and saved state equal, colour/depth "
+        f"max_abs_err {e_db:.3g}; B=2 headline grid ok (view 0 active equal "
+        f"to B=1); jittered rays card == CPU (seed 17, view_offset 3); empty "
+        f"geometry fill ok")
+
+    common = {"route": "cuda",
+              "source": "dmesh_renderer_tpu_torch/csrc/tet_fwd.cu",
+              "library_ms": None}
+    kernels = [
+        {**common, "name": "tet_first_hit",
+         "replaces": "dmesh_renderer_tpu/ops/tet_first_hit.py:51",
+         "launches": launches["tet_first_hit"],
+         "max_abs_err": max(err_s, err_h), "ms": k3_ms,
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         "bit_equal": bool(eq_s[0] and eq_h[0]), "pairs": n_pairs,
+         "slots_staged": walked, "slots_needed": need_slots,
+         "visits": n_visits, "hit_pixels": hit_pixels},
+        {**common, "name": "tet_fwd_march",
+         "replaces": "dmesh_renderer_tpu/ops/tet.py:503",
+         "launches": launches["tet_fwd_march"],
+         "max_abs_err": max(err_s, err_h), "ms": k4_ms,
+         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+         "bit_equal": bool(eq_s[1] and eq_h[1]), "blends": blends,
+         "walk_steps": walks, "active": n_act, "max_walk": max_walk},
+    ]
+    info = {"tet_forward_ms": tet_ms, "tet_forward_split_ms": split,
+            "tet_forward_peak_mib": tet_peak / 2**20,
+            "tet_card_vs_cpu_pixels": [n_diff, n_near]}
+    return kernels, info
 
 
 def main() -> int:
@@ -674,6 +1075,8 @@ def main() -> int:
     log("B=2 800x800 20k tris with gradients: finite, per-view depth and "
         "intensity gradients nonzero in both views")
 
+    tet_kernels, tet_info = tet_phases(dev)
+
     common = {"route": "cuda"}
     log(json.dumps({"kernels": [
         {**common, "name": "tri_fwd_composite",
@@ -706,10 +1109,11 @@ def main() -> int:
          "ms": ss_ms, "plain_ms": ss_plain_ms, "bound_ms": ss_bound,
          "bound_by": ss_by, "library_ms": ss_lib_ms,
          "shape": [N, C, F]},
+        *tet_kernels,
     ], "fwd_bwd_ms": fb_ms, "fwd_bwd_split_ms": fb_split,
         "fwd_bwd_peak_mib": fb_peak / 2**20,
         "forward_no_grad_after_ms": fwd_nograd_ms, "train_step_ms": step_ms,
-        "train_losses": losses}))
+        "train_losses": losses, **tet_info}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))
     return 0

@@ -1,16 +1,19 @@
-"""Public API of the tri renderer, in PyTorch.
+"""Public API of both renderers, in PyTorch.
 
-The same symbols, signatures, dtype casts and matrix transposes as the tri
-half of the JAX package's ``api.py``: ``TriRenderSettings``, ``render_tri``
-(matrices already transposed) and ``TriRenderer`` (casts ``faces`` to int32
-and transposes the modelview/projection matrices). Inputs may be torch
-tensors or NumPy arrays; outputs are torch tensors on ``device``.
+The same symbols, signatures, dtype casts and matrix transposes as the JAX
+package's ``api.py``: ``TriRenderSettings``, ``render_tri`` (matrices
+already transposed) and ``TriRenderer`` (casts ``faces`` to int32 and
+transposes the modelview/projection matrices), and their tet counterparts
+``TetRenderSettings``, ``render_tet`` and ``TetRenderer``. Inputs may be
+torch tensors or NumPy arrays; outputs are torch tensors on ``device``.
 
 Entry points run on ``device="cuda"`` unless the caller passes another
-device; asking for CUDA where there is no card raises. Gradients flow to
-``verts``, ``verts_color``, ``faces_opacity``, ``verts_depth`` and
+device; asking for CUDA where there is no card raises. Tri gradients flow
+to ``verts``, ``verts_color``, ``faces_opacity``, ``verts_depth`` and
 ``faces_intense`` (through the casts to float32 and to ``device``); faces,
-the matrices and ``bg`` get none, as in the reference renderer.
+the matrices and ``bg`` get none, as in the reference renderer. The tet
+renderer is forward only for now: it raises NotImplementedError when an
+input requires grad.
 """
 
 from __future__ import annotations
@@ -113,4 +116,97 @@ class TriRenderer(nn.Module):
             verts, _as_tensor(faces, torch.int32, self.device), verts_color,
             faces_opacity, mv.transpose(1, 2), proj.transpose(1, 2),
             verts_depth, faces_intense, self.render_settings,
+            return_aux=return_aux, device=self.device)
+
+
+class TetRenderSettings(NamedTuple):
+    """Image size and background; ``ray_random_seed`` > 0 jitters the
+    rays; ``key_capacity`` is the binned first hit's static (face, tile)
+    pair capacity (None picks a heuristic)."""
+    image_height: int
+    image_width: int
+    bg: Any
+    ray_random_seed: int = 0
+    key_capacity: Any = None
+
+
+def render_tet(verts, faces, verts_color, faces_opacity, mv_mats, proj_mats,
+               verts_depth, faces_intense, tets, face_tets, tet_faces,
+               render_settings: TetRenderSettings, return_aux: bool = False,
+               device="cuda"):
+    """Functional tet renderer; expects transposed matrices.
+
+    Returns (color [B, 3, H, W], depth [B, 1, H, W], active [B, H, W] bool)
+    and, with ``return_aux``, ``(overflow, num_rendered)`` of the binned
+    first hit (``(False, -1)`` on the dense path). ``verts_depth`` is
+    accepted and unused. With no vertices, faces or tets every pixel is
+    background with depth 1, inactive, and the aux is ``(False, 0)``."""
+    from .ops.tet import check_no_grad, render_tet_core
+    from .validation import check_tet_inputs
+
+    dev = resolve_device(device)
+    f32, i32 = torch.float32, torch.int32
+    mv_t = _as_tensor(mv_mats, f32, dev)
+    proj_t = _as_tensor(proj_mats, f32, dev)
+    a = dict(
+        verts=_as_tensor(verts, f32, dev),
+        faces=_as_tensor(faces, i32, dev),
+        verts_color=_as_tensor(verts_color, f32, dev),
+        faces_opacity=_as_tensor(faces_opacity, f32, dev),
+        faces_intense=_as_tensor(faces_intense, f32, dev),
+        tets=_as_tensor(tets, i32, dev),
+        face_tets=_as_tensor(face_tets, i32, dev),
+        tet_faces=_as_tensor(tet_faces, i32, dev),
+        bg=_as_tensor(render_settings.bg, f32, dev),
+    )
+    check_no_grad(mv_t, proj_t, verts_depth, *a.values())
+    check_tet_inputs(a["verts"], a["faces"], a["verts_color"],
+                     a["faces_opacity"], mv_t, proj_t, a["faces_intense"],
+                     a["tets"], a["face_tets"], a["tet_faces"], a["bg"])
+    B = mv_t.shape[0]
+    H = int(render_settings.image_height)
+    W = int(render_settings.image_width)
+    if (a["verts"].shape[0] == 0 or a["faces"].shape[0] == 0
+            or a["tets"].shape[0] == 0):
+        # no geometry: no ray finds a first hit, so every pixel takes the
+        # inactive fill
+        color = a["bg"].reshape(1, 3, 1, 1).expand(B, 3, H, W).contiguous()
+        depth = torch.ones((B, 1, H, W), dtype=f32, device=dev)
+        active = torch.zeros((B, H, W), dtype=torch.bool, device=dev)
+        if return_aux:
+            return color, depth, active, (torch.tensor(False, device=dev),
+                                          torch.tensor(0, device=dev))
+        return color, depth, active
+
+    kcap = render_settings.key_capacity
+    return render_tet_core(
+        a["verts"], a["faces"], a["verts_color"], a["faces_opacity"], mv_t,
+        proj_t, torch.linalg.inv(mv_t), torch.linalg.inv(proj_t),
+        a["faces_intense"], a["tets"], a["face_tets"], a["tet_faces"],
+        a["bg"], H, W, int(render_settings.ray_random_seed),
+        kcap=None if kcap is None else int(kcap), with_aux=return_aux)
+
+
+class TetRenderer(nn.Module):
+    """Module form: casts the index arrays to int32 and transposes the
+    row-major modelview/projection matrices [B, 4, 4] before
+    ``render_tet``."""
+
+    def __init__(self, render_settings: TetRenderSettings, device="cuda"):
+        super().__init__()
+        self.render_settings = render_settings
+        self.device = resolve_device(device)
+
+    def forward(self, verts, faces, verts_color, faces_opacity, mv_mats,
+                proj_mats, verts_depth, faces_intense, tets, face_tets,
+                tet_faces, return_aux: bool = False):
+        i32 = torch.int32
+        mv = _as_tensor(mv_mats, torch.float32, self.device)
+        proj = _as_tensor(proj_mats, torch.float32, self.device)
+        return render_tet(
+            verts, _as_tensor(faces, i32, self.device), verts_color,
+            faces_opacity, mv.transpose(1, 2), proj.transpose(1, 2),
+            verts_depth, faces_intense, _as_tensor(tets, i32, self.device),
+            _as_tensor(face_tets, i32, self.device),
+            _as_tensor(tet_faces, i32, self.device), self.render_settings,
             return_aux=return_aux, device=self.device)

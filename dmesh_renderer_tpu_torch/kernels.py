@@ -28,12 +28,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 # argtypes of each library's launchers: pointers and the stream as c_void_p,
-# sizes as c_int
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# sizes as c_int, f32 scalars as c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "tri_fwd": {"tri_fwd_composite": [_P] * 8 + [_I] * 3 + [_P]},
     "tri_bwd": {"tri_bwd_composite": [_P] * 11 + [_I] * 3 + [_P],
                 "seg_sum": [_P] * 4 + [_I] * 2 + [_P]},
+    "tet_fwd": {"tet_first_hit": [_P] * 8 + [_I] * 3 + [_P],
+                "tet_fwd_march": [_P] * 11 + [_I] * 4 + [_F, _P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -4,8 +4,9 @@ A port of the JAX package's ``ops/binning.py``, written the plain GPU way
 (the TPU's gather-free boundary scatters and cummax fills are not needed):
 
 1. per-view stable depth pre-sort of the faces (``torch.sort(stable=True)``
-   over [B, F]);
-2. exact emission: each emitting face expands into (face, tile-row) runs
+   over [B, F]) by mean depth, or by minimum depth for the tet first hit;
+2. exact emission (the tri path; the tet first hit emits every tile of
+   each face's bounding rect): each emitting face expands into (face, tile-row) runs
    and each run into its covered tiles (``repeat_interleave``); a tile row
    is kept only where the conservative corner test of
    ``_row_tile_interval`` passes, so only pairs that can cover a pixel are
@@ -135,11 +136,13 @@ def exact_tile_counts(pre: dict, grid_x: int, grid_y: int,
                        torch.zeros_like(total))
 
 
-def _depth_presort(pre: dict, emit_counts: torch.Tensor) -> torch.Tensor:
-    """Per-view stable face order by depth key; faces that emit nothing go
-    last. Returns sigma [B*F]: the original view*F+face id of each rank."""
+def _depth_presort(pre: dict, emit_counts: torch.Tensor,
+                   sort_by: str = "depth") -> torch.Tensor:
+    """Per-view stable face order by depth key (``pre[sort_by]``); faces
+    that emit nothing go last. Returns sigma [B*F]: the original view*F+face
+    id of each rank."""
     B, F = emit_counts.shape
-    key = torch.where(emit_counts > 0, pre["depth"], math.inf)
+    key = torch.where(emit_counts > 0, pre[sort_by], math.inf)
     sigma_v = torch.sort(key, dim=1, stable=True).indices
     offs = torch.arange(B, device=key.device)[:, None] * F
     return (sigma_v + offs).reshape(-1)
@@ -172,12 +175,18 @@ def default_key_capacity(B: int, F: int, avg_tiles_per_face: int = 16) -> int:
 
 def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
                   tile_px: int | None = None,
-                  run_cap: int | None = None) -> BinnedKeys:
+                  run_cap: int | None = None,
+                  sort_by: str = "depth") -> BinnedKeys:
     """Build the tile-sorted pair table from ``preprocess_faces`` output.
 
-    With ``tile_px`` (the render path), exact-coverage emission; without
-    it, or above the exact path's capacity limit, every tile of the bbox
-    rect is emitted, as in the JAX package."""
+    With ``tile_px`` (the tri render path), exact-coverage emission;
+    without it (the tet first hit), or above the exact path's capacity
+    limit, every tile of the bbox rect is emitted, as in the JAX package.
+    ``sort_by``: the per-face depth key that orders each tile's list,
+    "depth" (mean depth, tri) or "min_depth" (tet)."""
+    if sort_by not in ("depth", "min_depth"):
+        raise ValueError(f"sort_by must be 'depth' or 'min_depth', got "
+                         f"{sort_by!r}")
     tiles = pre["tiles"]
     B, F = tiles.shape
     dev = tiles.device
@@ -189,7 +198,7 @@ def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
         counts = exact_tile_counts(pre, grid_x, grid_y, tile_px)
     else:
         counts = tiles
-    sigma = _depth_presort(pre, counts)
+    sigma = _depth_presort(pre, counts, sort_by)
     take = lambda x: x.reshape(B * F, *x.shape[2:])[sigma]
 
     # --- (face, tile-row) runs, in emission order ---

@@ -1,7 +1,8 @@
 """Geometry primitives of the tri renderer, in plain torch.
 
 A port of the JAX package's ``ops/geometry.py`` (the tri half, with the
-gradient helpers of the backward). Coverage,
+gradient helpers of the backward, and the tet renderer's strict hit test).
+Coverage,
 culling and sort keys are integer or boolean decisions taken from f32 values,
 so this module repeats the JAX arithmetic operation for operation:
 
@@ -20,6 +21,8 @@ points transform as ``[p, 1] @ m_t``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..utils.config import SUBPIXEL, W_EPS
@@ -36,6 +39,28 @@ def sat_i32(x: torch.Tensor) -> torch.Tensor:
     y = torch.nan_to_num(x, nan=0.0).clamp(float(_I32_MIN), _F32_BELOW_2_31)
     y = y.to(torch.int32)
     return torch.where(x >= 2147483648.0, torch.full_like(y, _I32_MAX), y)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root of an f32 tensor, the same bits
+    on every device. torch's CPU square roots are not correctly rounded (the
+    f32 one is a vector-math routine, and even the f64 one, rounded to f32,
+    differs from the correct root on some inputs and from one process to
+    the next), while CUDA's are. So the f64 root rounded to f32 is only a
+    first guess r; of r and its two f32 neighbours the one nearest the true
+    root is kept, decided exactly in f64: the midpoints between neighbours
+    have 25 significant bits, so their squares are exact."""
+    xd = x.double()
+    r = torch.sqrt(xd).float()
+    lo = torch.nextafter(r, torch.zeros_like(r))
+    hi = torch.nextafter(r, torch.full_like(r, math.inf))
+    rd = r.double()
+    m_lo = (lo.double() + rd) * 0.5
+    m_hi = (rd + hi.double()) * 0.5
+    r = torch.where(xd < m_lo * m_lo, lo,
+                    torch.where(xd > m_hi * m_hi, hi, r))
+    # zero, negative, inf and NaN inputs: the root is exact or NaN anyway
+    return torch.where(torch.isfinite(x) & (x > 0), r, torch.sqrt(x))
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -189,6 +214,14 @@ def ray_tri_intersection(ray_o, ray_d, p0, p1, p2):
     u = dot3(pv, t_vec) * inv
     v = dot3(qv, ray_d) * inv
     return torch.stack([t, u, v], dim=-1), nondegenerate
+
+
+def strict_hit(tuv: torch.Tensor, nondegenerate: torch.Tensor) -> torch.Tensor:
+    """The tet renderer's hit test on ``ray_tri_intersection``'s output:
+    in front of the ray and inside the triangle, edges included."""
+    t, u, v = tuv[..., 0], tuv[..., 1], tuv[..., 2]
+    return nondegenerate & (t >= 0.0) & (u >= 0.0) & (v >= 0.0) & (
+        u + v <= 1.0)
 
 
 def clamp_bary_uv(u: torch.Tensor, v: torch.Tensor):

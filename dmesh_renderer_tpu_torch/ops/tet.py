@@ -1,0 +1,537 @@
+"""Tet renderer forward: the first hit and the march through the tets.
+
+A port of the forward of the JAX package's ``ops/tet.py``. The renderer
+composites the faces of a tetrahedral tessellation with exact depth order by
+walking each pixel's ray through the tet connectivity:
+
+  project_verts + preprocess_faces
+  -> generate_rays (tet norm mode, optional threefry jitter)
+  -> the first hit: ``first_intersection_dense`` (F <= 2048) or the binned
+     ``tet_first_hit.first_intersection_binned`` (kernel K3)
+  -> ``march_tables`` and the start tet of every ray (``start_tets``)
+  -> ``fwd_march`` (kernel K4, csrc/tet_fwd.cu): per ray, blend the current
+     face, update log-transmittance, and walk to the next face until T is
+     exhausted, the ray leaves the mesh, or the walk breaks
+  -> the colour/depth/active assembly.
+
+The ``active`` mask is true only where the march ended validly (T
+exhausted or the ray left the mesh); rays that miss the mesh or whose walk
+breaks render the background with depth 1.
+
+Not ported, by design: the phased lockstep march with its compaction, the
+per-view mega-table split, the entry-slot mega table with its mirror slots
+and gather index, and the (G, NS, 128) row packing. They exist to make the
+TPU's per-step row gathers cheap; a CUDA thread that finishes simply
+retires. This slice is forward only: ``render_tet_core`` raises
+``NotImplementedError`` when an input requires grad.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..utils.config import BIN_TILE, DEFAULT_MAX_MARCH_STEPS, T_EPS, TILE_X
+from .binning import default_key_capacity
+from .geometry import (
+    clamp_w,
+    cross,
+    preprocess_faces,
+    project_verts,
+    ray_tri_intersection,
+    sqrt_rn,
+    strict_hit,
+)
+from .rays import generate_rays
+
+# Faces per step of the dense first hit; rays per block of it (bounds the
+# [B, rays, faces] temporaries).
+FIRST_HIT_CHUNK = 128
+FIRST_HIT_RAY_BLOCK = 32768
+# Above this face count the binned first hit (K3) is used.
+BINNED_FIRST_HIT_THRESHOLD = 2048
+# log(T) after a face of opacity 1: log(T_EPS * 0.1), rounded to f32.
+LOG_T_FLOOR = float(torch.tensor(math.log(T_EPS * 0.1), dtype=torch.float32))
+TET_GEO_COLS = 40  # p0, e1, e2 of the 4 face slots (36), 4 outward signs
+TET_ID_COLS = 8    # 4 face ids, 4 neighbour tet ids (-1: none)
+SHADE_COLS = 12    # 9 corner colours, alpha, log(max(1 - alpha, 1e-37)), inten
+
+_NOT_YET = ("the tet renderer's gradients come with the tet-backward slice "
+            "of the port; render without requires_grad")
+
+
+def check_no_grad(*tensors):
+    """Raise NotImplementedError when any tensor requires grad."""
+    if any(isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
+        raise NotImplementedError(_NOT_YET)
+
+
+# =============================================================================
+# First hit (dense)
+# =============================================================================
+
+def first_intersection_dense(verts, faces, valid, order, ray_o, ray_d):
+    """The first strict hit of every ray over all valid faces.
+
+    verts [P, 3]; faces [F, 3]; valid [B, F]; order [B, F] (faces sorted by
+    min depth); ray_o/ray_d [B, N, 3]. The hit with the smallest t wins; of
+    equal t, the first in ``order``. Returns (first_face [B, N] int32 (-1:
+    no hit), t (0 on a miss), u, v [B, N] f32)."""
+    B, F = order.shape
+    N = ray_o.shape[1]
+    dev = verts.device
+    valid_s = torch.take_along_dim(valid, order, dim=1)
+    p = verts[faces.long()[order]]  # [B, F, 3, 3]
+    inf = torch.tensor(math.inf, device=dev)
+
+    best = [torch.full((B, N), math.inf, device=dev),
+            torch.full((B, N), -1, dtype=torch.int64, device=dev),
+            torch.zeros((B, N), device=dev), torch.zeros((B, N), device=dev)]
+    for n0 in range(0, N, FIRST_HIT_RAY_BLOCK):
+        rs = slice(n0, min(N, n0 + FIRST_HIT_RAY_BLOCK))
+        ro = ray_o[:, rs, None, :]
+        rd = ray_d[:, rs, None, :]
+        bt, bface, bu, bv = (x[:, rs] for x in best)
+        # chunks go in sorted order, so a tie with an earlier chunk's best
+        # keeps the earlier face (strict <)
+        for c0 in range(0, F, FIRST_HIT_CHUNK):
+            cs = slice(c0, min(F, c0 + FIRST_HIT_CHUNK))
+            pc = p[:, None, cs]  # [B, 1, C, 3, 3]
+            tuv, nd = ray_tri_intersection(ro, rd, pc[..., 0, :],
+                                           pc[..., 1, :], pc[..., 2, :])
+            hit = strict_hit(tuv, nd) & valid_s[:, None, cs]
+            key_t = torch.where(hit, tuv[..., 0], inf)
+            min_t = key_t.min(dim=-1, keepdim=True).values
+            # the first chunk position that holds the minimum
+            cand = (hit & (key_t <= min_t)).to(torch.uint8).argmax(
+                dim=-1, keepdim=True)
+            c_t = key_t.gather(-1, cand)[..., 0]
+            better = c_t < bt
+            c_face = order[:, None, cs].expand(hit.shape).gather(-1, cand)
+            bt.copy_(torch.where(better, c_t, bt))
+            bface.copy_(torch.where(better, c_face[..., 0], bface))
+            for b_x, k in ((bu, 1), (bv, 2)):
+                b_x.copy_(torch.where(
+                    better, tuv[..., k].gather(-1, cand)[..., 0], b_x))
+    bt, bface, bu, bv = best
+    miss = ~torch.isfinite(bt)
+    return (torch.where(miss, -1, bface).to(torch.int32),
+            torch.where(miss, 0.0, bt), bu, bv)
+
+
+# =============================================================================
+# March tables, start tets, projective depth
+# =============================================================================
+
+def march_tables(verts, faces, tets, tet_faces, face_tets, verts_color,
+                 faces_opacity, faces_intense):
+    """The march's per-tet and per-(view, face) tables.
+
+    Returns a dict: ``tet_geo`` [T, 40] f32 (p0, e1, e2 of the 4 face slots,
+    then the outward sign of each slot: outward = sign * n-hat, from the
+    side of the tet's centroid), ``tet_ids`` [T, 8] int32 (the slots' face
+    ids, then each slot's neighbour tet: the first entry of the face's
+    ``face_tets`` that is neither this tet nor -1), ``shade`` [B*F, 12] f32
+    (9 corner colours, alpha, log(max(1 - alpha, 1e-37)), the view's
+    intensity), and ``geo`` [F, 12] (p0, e1, e2, n-hat) and ``sign`` [T, 4]
+    for the start tet."""
+    F = faces.shape[0]
+    T = tets.shape[0]
+    B = faces_intense.shape[0]
+    fl = faces.long()
+    gv = verts[fl]  # [F, 3, 3]
+    p0 = gv[:, 0]
+    e1 = gv[:, 1] - p0
+    e2 = gv[:, 2] - p0
+    n = cross(e1, e2)
+    sq = n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1] + n[:, 2] * n[:, 2]
+    norm = sqrt_rn(sq)  # correctly rounded, as the kernel's sqrtf
+    norm = torch.maximum(norm, torch.full_like(norm, 1e-4))
+    nhat = n / norm[:, None]
+    geo = torch.cat([p0, e1, e2, nhat], dim=1)  # [F, 12]
+
+    tf = tet_faces.long().clamp_min(0)  # [T, 4]
+    tv = verts[tets.long()]  # [T, 4, 3]
+    centers = (tv[:, 0] + tv[:, 1] + tv[:, 2] + tv[:, 3]) / torch.full_like(
+        tv[:, 0], 4.0)
+    geo_tf = geo[tf]  # [T, 4, 12]
+    off = centers[:, None, :] - geo_tf[..., 0:3]
+    flip = (geo_tf[..., 9] * off[..., 0] + geo_tf[..., 10] * off[..., 1]
+            + geo_tf[..., 11] * off[..., 2]) > 0.0
+    sign = torch.where(flip, -1.0, 1.0)  # [T, 4]
+
+    ft2 = face_tets.long()[tf]  # [T, 4, 2]
+    tidx = torch.arange(T, device=verts.device)[:, None]
+    c0, c1 = ft2[..., 0], ft2[..., 1]
+    ok0 = (c0 != tidx) & (c0 != -1)
+    ok1 = (c1 != tidx) & (c1 != -1)
+    nbr = torch.where(ok0, c0, torch.where(ok1, c1, -1))
+
+    tet_geo = torch.cat([geo_tf[..., 0:9].reshape(T, 36), sign], dim=1)
+    tet_ids = torch.cat([tet_faces.long(), nbr], dim=1).to(torch.int32)
+
+    col9 = verts_color[fl].reshape(F, 9)
+    one_m_a = 1.0 - faces_opacity
+    log1ma = torch.log(torch.maximum(one_m_a, torch.full_like(one_m_a, 1e-37)))
+    base = torch.cat([col9, faces_opacity[:, None], log1ma[:, None]], dim=1)
+    shade = torch.cat([base[None].expand(B, F, 11), faces_intense[..., None]],
+                      dim=-1).reshape(B * F, SHADE_COLS)
+    return {"tet_geo": tet_geo.contiguous(), "tet_ids": tet_ids.contiguous(),
+            "shade": shade.contiguous(), "geo": geo, "sign": sign}
+
+
+def start_tets(first_face, ray_d, geo, sign, face_tets, tet_faces):
+    """The tet each ray enters at its first hit [M] int32 (-1: none): of
+    the first face's two tets, the one whose outward normal of that face
+    opposes the ray; when both qualify the second wins.
+
+    first_face [M] int32; ray_d [M, 3]; ``geo``/``sign`` of
+    ``march_tables``."""
+    ff = first_face.long()
+    ffs = ff.clamp_min(0)
+    g = geo[ffs]
+    ndot = g[:, 9] * ray_d[:, 0] + g[:, 10] * ray_d[:, 1] + g[:, 11] * ray_d[:, 2]
+    ftc = face_tets.long()[ffs]  # [M, 2]
+    first_tet = torch.full_like(ff, -1)
+    for i in range(2):
+        cand = ftc[:, i]
+        cs = cand.clamp_min(0)
+        cf, csg = tet_faces.long()[cs], sign[cs]  # [M, 4]
+        # at most one slot of a tet holds the face: the masked sum is its
+        # sign
+        sgn = torch.where(cf[:, 0] == ff, csg[:, 0], 0.0)
+        for j in range(1, 4):
+            sgn = sgn + torch.where(cf[:, j] == ff, csg[:, j], 0.0)
+        take = (cand >= 0) & (sgn * ndot < 0.0) & (ff >= 0)
+        first_tet = torch.where(take, cand, first_tet)
+    return first_tet.to(torch.int32)
+
+
+def projective_zw(cam_o, ray_d, mv_t, proj_t):
+    """z and w of the homogeneous point proj(mv(o + t d)) as affine
+    functions of t, per ray: [B*N, 4] (z at 0, w at 0, dz/dt, dw/dt), in
+    the JAX package's operation order. cam_o [B, 3]; ray_d [B, N, 3];
+    mv_t/proj_t [B, 4, 4] transposed."""
+    B, N = ray_d.shape[:2]
+    ro = [cam_o[:, k, None] for k in range(3)]  # [B, 1]
+    rd = [ray_d[..., k] for k in range(3)]  # [B, N]
+    mv = lambda j, i: mv_t[:, j, i, None]
+    pj = lambda j, i: proj_t[:, j, i, None]
+    pvo = [ro[0] * mv(0, i) + ro[1] * mv(1, i) + ro[2] * mv(2, i) + mv(3, i)
+           for i in range(3)]
+    dv = [rd[0] * mv(0, i) + rd[1] * mv(1, i) + rd[2] * mv(2, i)
+          for i in range(3)]
+    phoz = pvo[0] * pj(0, 2) + pvo[1] * pj(1, 2) + pvo[2] * pj(2, 2) + pj(3, 2)
+    phow = pvo[0] * pj(0, 3) + pvo[1] * pj(1, 3) + pvo[2] * pj(2, 3) + pj(3, 3)
+    phdz = dv[0] * pj(0, 2) + dv[1] * pj(1, 2) + dv[2] * pj(2, 2)
+    phdw = dv[0] * pj(0, 3) + dv[1] * pj(1, 3) + dv[2] * pj(2, 3)
+    return torch.stack([phoz.expand(B, N), phow.expand(B, N), phdz, phdw],
+                       dim=-1).reshape(B * N, 4)
+
+
+# =============================================================================
+# The march (kernel K4)
+# =============================================================================
+
+def _check_march_args(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
+                      tet_ids, shade, N):
+    M = ray_d.shape[0]
+    B = cam_o.shape[0]
+    T = tet_geo.shape[0]
+    want = ((ray_d, torch.float32, (M, 3)), (cam_o, torch.float32, (B, 3)),
+            (zw, torch.float32, (M, 4)), (first_face, torch.int32, (M,)),
+            (first_tet, torch.int32, (M,)), (tuv, torch.float32, (3, M)),
+            (tet_geo, torch.float32, (T, TET_GEO_COLS)),
+            (tet_ids, torch.int32, (T, TET_ID_COLS)),
+            (shade, torch.float32, (shade.shape[0], SHADE_COLS)))
+    for t, dtype, shape in want:
+        if t.dtype != dtype:
+            raise TypeError(f"fwd_march: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fwd_march: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != ray_d.device:
+            raise ValueError("fwd_march: all tensors must share a device")
+    if M != B * N or shade.shape[0] % B:
+        raise ValueError(f"fwd_march: {M} rays for {B} views of {N}, shade "
+                         f"rows {shade.shape[0]}")
+
+
+def fwd_march(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_ids,
+              shade, N: int, max_steps: int = DEFAULT_MAX_MARCH_STEPS):
+    """March every ray through the tets from its first hit (kernel K4).
+
+    ray_d [M, 3] (M = B * N rays, view-major); cam_o [B, 3]; zw [M, 4]
+    (``projective_zw``); first_face, first_tet [M] int32 (-1: the ray does
+    not march); tuv [3, M] f32, the first hit's t, u, v; the tables of
+    ``march_tables``. At most ``max_steps`` faces are blended per ray.
+    Returns (out_f [6, M] f32: C rgb, D, log T, the log T before the last
+    blend; out_i [4, M] int32: last face, last tet, n_contrib, active).
+
+    On CUDA tensors this launches the kernel of csrc/tet_fwd.cu (and raises
+    if it cannot); on CPU tensors it runs ``fwd_march_plain``."""
+    args = (ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_ids,
+            shade)
+    _check_march_args(*args, N)
+    if ray_d.device.type == "cpu":
+        return fwd_march_plain(*args, N, max_steps)
+    if ray_d.device.type != "cuda":
+        raise ValueError(f"fwd_march: unsupported device {ray_d.device}")
+    from ..kernels import load
+
+    lib = load("tet_fwd")
+    tensors = [x.contiguous() for x in args]
+    if tensors[2].data_ptr() % 16:
+        tensors[2] = tensors[2].clone()  # the kernel reads zw as float4
+    M = ray_d.shape[0]
+    F = shade.shape[0] // cam_o.shape[0]
+    dev = ray_d.device
+    out_f = torch.empty((6, M), dtype=torch.float32, device=dev)
+    out_i = torch.empty((4, M), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tet_fwd_march(
+            *[ctypes.c_void_p(t.data_ptr()) for t in tensors + [out_f, out_i]],
+            M, N, F, int(max_steps), LOG_T_FLOOR, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"tet_fwd_march launch failed: CUDA error {err}")
+    fwd_march.launches += 1
+    return out_f, out_i
+
+
+fwd_march.launches = 0
+
+
+def _walk(g, ids, cf, o, d):
+    """One connectivity step for [L] rays: their tet's rows ``g`` [L, 40]
+    and ``ids`` [L, 8], current face ``cf`` [L], origin ``o`` and direction
+    ``d`` (3-lists of [L]). Returns (err, next face, next tet, t, u, v),
+    the kernel's per-slot arithmetic in its order."""
+    dx, dy, dz = d
+    L = cf.shape[0]
+    n_other = torch.zeros(L, dtype=torch.int32, device=cf.device)
+    n_exit = torch.zeros_like(n_other)
+    d_entry = torch.zeros(L, dtype=torch.float32, device=cf.device)
+    for j in range(4):
+        p0x, p0y, p0z = g[:, 9 * j], g[:, 9 * j + 1], g[:, 9 * j + 2]
+        e1x, e1y, e1z = g[:, 9 * j + 3], g[:, 9 * j + 4], g[:, 9 * j + 5]
+        e2x, e2y, e2z = g[:, 9 * j + 6], g[:, 9 * j + 7], g[:, 9 * j + 8]
+        sgn = g[:, 36 + j]
+        tfj, nbj = ids[:, j], ids[:, 4 + j]
+
+        nx = e1y * e2z - e1z * e2y
+        ny = e1z * e2x - e1x * e2z
+        nz = e1x * e2y - e1y * e2x
+        norm = sqrt_rn(nx * nx + ny * ny + nz * nz)
+        norm = torch.maximum(norm, torch.full_like(norm, 1e-4))
+        outd = sgn * ((nx / norm) * dx + (ny / norm) * dy + (nz / norm) * dz)
+
+        tvx, tvy, tvz = o[0] - p0x, o[1] - p0y, o[2] - p0z
+        pvx = dy * e2z - dz * e2y
+        pvy = dz * e2x - dx * e2z
+        pvz = dx * e2y - dy * e2x
+        qvx = tvy * e1z - tvz * e1y
+        qvy = tvz * e1x - tvx * e1z
+        qvz = tvx * e1y - tvy * e1x
+        denom = pvx * e1x + pvy * e1y + pvz * e1z
+        nd = denom != 0.0
+        inv = torch.reciprocal(torch.where(nd, denom, 1.0))
+        t = (qvx * e2x + qvy * e2y + qvz * e2z) * inv
+        u = (pvx * tvx + pvy * tvy + pvz * tvz) * inv
+        v = (qvx * dx + qvy * dy + qvz * dz) * inv
+        hit = nd & (t >= 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+
+        is_entry = tfj == cf
+        n_other = n_other + (~is_entry).to(torch.int32)
+        d_entry = d_entry + torch.where(is_entry, outd, 0.0)
+        ex = ~is_entry & hit & (outd > 0.0)
+        n_exit = n_exit + ex.to(torch.int32)
+        if j == 0:
+            nt_, nu_, nv_, nface, ntet = t, u, v, tfj, nbj
+        else:
+            nt_ = torch.where(ex, t, nt_)
+            nu_ = torch.where(ex, u, nu_)
+            nv_ = torch.where(ex, v, nv_)
+            nface = torch.where(ex, tfj, nface)
+            ntet = torch.where(ex, nbj, ntet)
+    err = (n_other != 3) | (d_entry >= 0.0) | (n_exit != 1)
+    return err, nface, ntet, nt_, nu_, nv_
+
+
+def fwd_march_plain(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
+                    tet_ids, shade, N: int,
+                    max_steps: int = DEFAULT_MAX_MARCH_STEPS):
+    """Plain torch version of ``fwd_march``: the same inputs, outputs and
+    per-ray f32 arithmetic, vectorised over the rays that are still
+    marching and sequential over the steps."""
+    dev = ray_d.device
+    M = ray_d.shape[0]
+    F = shade.shape[0] // cam_o.shape[0]
+    view = torch.arange(M, device=dev) // N
+    f32 = dict(dtype=torch.float32, device=dev)
+    C = [torch.zeros(M, **f32) for _ in range(4)]  # r, g, b, D
+    log_T = torch.zeros(M, **f32)
+    T_cur = torch.ones(M, **f32)
+    plt = torch.zeros(M, **f32)
+    last_face = torch.full((M,), -1, dtype=torch.int32, device=dev)
+    last_tet = torch.full_like(last_face, -1)
+    n_contrib = torch.zeros_like(last_face)
+    active = torch.zeros_like(last_face)
+    cf, ct = first_face.clone(), first_tet.clone()
+    t, u, v = tuv[0].clone(), tuv[1].clone(), tuv[2].clone()
+    floor = torch.tensor(LOG_T_FLOOR, **f32)
+
+    live = torch.nonzero((cf != -1) & (ct != -1)).squeeze(1)
+    for _step in range(int(max_steps)):
+        if live.numel() == 0:
+            break
+        vw = view[live]
+        cfl, ctl = cf[live], ct[live]
+        tl, ul, vl = t[live], u[live], v[live]
+        sh = shade[vw * F + cfl.long()]
+        alpha, l1a, inten = sh[:, 9], sh[:, 10], sh[:, 11]
+        w = T_cur[live] * alpha
+        for ch in range(3):
+            col = (sh[:, ch] + (sh[:, 3 + ch] - sh[:, ch]) * ul
+                   + (sh[:, 6 + ch] - sh[:, ch]) * vl) * inten
+            C[ch][live] = C[ch][live] + col * w
+        z = zw[live]
+        dep = (z[:, 0] + tl * z[:, 2]) / clamp_w(z[:, 1] + tl * z[:, 3])
+        C[3][live] = C[3][live] + dep * w
+        lt_old = log_T[live]
+        plt[live] = lt_old
+        lt_new = torch.where(alpha < 1.0, lt_old + l1a, floor)
+        log_T[live] = lt_new
+        tc = torch.exp(lt_new)
+        T_cur[live] = tc
+        last_face[live] = cfl
+        last_tet[live] = ctl
+        n_contrib[live] += 1
+
+        term = (tc < T_EPS) | (ctl == -1)
+        active[live[term]] = 1
+        keep = ~term
+        live, ctl, cfl, vw = live[keep], ctl[keep], cfl[keep], vw[keep]
+        g = tet_geo[ctl.long()]
+        ids = tet_ids[ctl.long()]
+        o = [cam_o[vw, k] for k in range(3)]
+        d = [ray_d[live, k] for k in range(3)]
+        err, nf, nt, t2, u2, v2 = _walk(g, ids, cfl, o, d)
+        ok = ~err
+        live = live[ok]
+        cf[live], ct[live] = nf[ok], nt[ok]
+        t[live], u[live], v[live] = t2[ok], u2[ok], v2[ok]
+    return (torch.stack(C + [log_T, plt]),
+            torch.stack([last_face, last_tet, n_contrib, active]))
+
+
+# =============================================================================
+# The forward
+# =============================================================================
+
+def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
+                       proj_t, inv_mv_t, inv_proj_t, faces_intense, tets,
+                       face_tets, tet_faces, bg, height: int, width: int,
+                       seed: int, max_steps: int = DEFAULT_MAX_MARCH_STEPS,
+                       kcap: int | None = None, view_offset=None):
+    """The tet forward. Returns (color [B, 3, H, W], depth [B, 1, H, W],
+    active [B, H, W] bool, saved): ``saved`` holds the per-ray state a
+    backward needs -- first_face, last_face, last_tet, n_contrib [B, N]
+    int32, final_log_T, final_prev_log_T [B, N] f32, is_active [B, N] bool
+    -- and the first hit's aux (fh_overflow, fh_num_rendered, fh_walked;
+    False, -1, -1 on the dense path)."""
+    from .tet_first_hit import first_intersection_binned
+
+    B = mv_t.shape[0]
+    F = faces.shape[0]
+    N = height * width
+    dev = verts.device
+    use_binned = F > BINNED_FIRST_HIT_THRESHOLD
+
+    ndc, img = project_verts(verts, mv_t, proj_t, width, height)
+    tile = BIN_TILE if use_binned else TILE_X
+    pre = preprocess_faces(ndc, img, faces, width, height, tile, tile)
+    ray_o, ray_d_img = generate_rays(
+        inv_mv_t, inv_proj_t, width, height, norm_eps_mode="tet",
+        jitter_seed=seed if seed > 0 else None, view_offset=view_offset)
+    ray_d = ray_d_img.reshape(B, N, 3)
+    cam_o = inv_mv_t[:, 3, :3].contiguous()
+
+    if use_binned:
+        if kcap is None:
+            kcap = default_key_capacity(B, F, avg_tiles_per_face=5)
+        first_face, rt, iu, iv, fh_aux = first_intersection_binned(
+            verts, faces, pre, cam_o, ray_d_img, height, width, B, kcap)
+    else:
+        key = torch.where(pre["valid"], pre["min_depth"], math.inf)
+        order = torch.sort(key, dim=1, stable=True).indices
+        first_face, rt, iu, iv = first_intersection_dense(
+            verts, faces, pre["valid"], order, ray_o.reshape(B, N, 3), ray_d)
+        # the dense path scans every valid face: no capacity, cannot drop
+        fh_aux = (torch.tensor(False, device=dev),
+                  torch.tensor(-1, device=dev), torch.tensor(-1, device=dev))
+
+    march = march_tables(verts, faces, tets, tet_faces, face_tets,
+                         verts_color, faces_opacity, faces_intense)
+    M = B * N
+    rd_flat = ray_d.reshape(M, 3)
+    ff_flat = first_face.reshape(M)
+    first_tet = start_tets(ff_flat, rd_flat, march["geo"], march["sign"],
+                           face_tets, tet_faces)
+    zw = projective_zw(cam_o, ray_d, mv_t, proj_t)
+    tuv = torch.stack([rt.reshape(M), iu.reshape(M), iv.reshape(M)])
+    out_f, out_i = fwd_march(rd_flat, cam_o, zw, ff_flat, first_tet, tuv,
+                             march["tet_geo"], march["tet_ids"],
+                             march["shade"], N, max_steps)
+
+    act = out_i[3] != 0
+    final_T = torch.exp(out_f[4])
+    col = [torch.where(act, out_f[ch] + final_T * bg[ch], bg[ch])
+           for ch in range(3)]
+    color = torch.stack(col).reshape(3, B, height, width).transpose(0, 1)
+    depth = torch.where(act, out_f[3] + final_T * 1.0, 1.0).reshape(
+        B, 1, height, width)
+    shape2 = lambda x: x.reshape(B, N)
+    saved = dict(
+        first_face=first_face,
+        last_face=shape2(out_i[0]),
+        last_tet=shape2(out_i[1]),
+        final_log_T=shape2(out_f[4]),
+        final_prev_log_T=shape2(out_f[5]),
+        n_contrib=shape2(out_i[2]),
+        is_active=shape2(act),
+        fh_overflow=fh_aux[0],
+        fh_num_rendered=fh_aux[1],
+        fh_walked=fh_aux[2],
+    )
+    return color.contiguous(), depth, act.reshape(B, height, width), saved
+
+
+def render_tet_core(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+                    inv_mv_t, inv_proj_t, faces_intense, tets, face_tets,
+                    tet_faces, bg, height: int, width: int, seed: int,
+                    max_steps: int = DEFAULT_MAX_MARCH_STEPS,
+                    kcap: int | None = None, with_aux: bool = False,
+                    view_offset=None):
+    """The tet renderer on transposed matrices with their inverses.
+
+    Shapes: verts [P, 3], faces [F, 3], verts_color [P, 3], faces_opacity
+    [F], mv_t/proj_t/inv_mv_t/inv_proj_t [B, 4, 4], faces_intense [B, F],
+    tets [T, 4], face_tets [F, 2], tet_faces [T, 4], bg [3]. ``seed`` > 0
+    jitters the rays (keyed per global view: ``view_offset`` is the index
+    of view 0). Returns (color [B, 3, H, W], depth [B, 1, H, W], active
+    [B, H, W] bool) and, with ``with_aux``, ``(overflow, num_rendered)`` of
+    the binned first hit (``(False, -1)`` on the dense path). Forward only:
+    raises NotImplementedError when an input requires grad."""
+    check_no_grad(verts, verts_color, faces_opacity, mv_t, proj_t, inv_mv_t,
+                  inv_proj_t, faces_intense, bg)
+    color, depth, active, saved = render_tet_forward(
+        verts, faces, verts_color, faces_opacity, mv_t, proj_t, inv_mv_t,
+        inv_proj_t, faces_intense, tets, face_tets, tet_faces, bg, height,
+        width, seed, max_steps, kcap, view_offset)
+    if with_aux:
+        return color, depth, active, (saved["fh_overflow"],
+                                      saved["fh_num_rendered"])
+    return color, depth, active

@@ -1,4 +1,4 @@
-"""Static configuration constants of the tri renderer.
+"""Static configuration constants of the tri and tet renderers.
 
 The same values as the JAX package's ``utils/config.py`` (kept as a copy:
 the port imports nothing of that package).
@@ -17,6 +17,11 @@ T_EPS = 1e-4
 # Binning tile side and coverage-rect granularity of every tri path.
 BIN_TILE = 32
 
+# Tile side of the dense tet first hit's preprocess (culling and depth keys
+# only, which do not depend on it; the binned first hit uses BIN_TILE).
+TILE_X = 16
+TILE_Y = 16
+
 # Fixed-point subpixel resolution of the coverage test. Part of the coverage
 # contract: the pixel sample of pixel (x, y) is (16x + 8, 16y + 8).
 SUBPIXEL = 16.0
@@ -26,3 +31,6 @@ NUM_CHANNELS = 3
 
 # clamp_w epsilon guarding the perspective divide.
 W_EPS = 1e-4
+
+# Cap on the tet ray march's steps per ray.
+DEFAULT_MAX_MARCH_STEPS = 512

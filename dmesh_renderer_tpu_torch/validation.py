@@ -1,4 +1,4 @@
-"""Input validation at the API boundary (shape contract of the tri renderer).
+"""Input validation at the API boundary (shape contracts of the renderers).
 
 The messages are those of the JAX package, so callers that match on them
 see the same text from either package.
@@ -44,3 +44,23 @@ def check_tri_inputs(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
     _chk(F < (1 << 24),
          f"at most 2^24-1 faces supported (ids ride in f32-exact columns "
          f"of the binned pipelines), got F={F}")
+
+
+def check_tet_inputs(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+                     faces_intense, tets, face_tets, tet_faces, bg):
+    """Shape contract of the tet renderer (``verts_depth`` is not used)."""
+    check_tri_inputs(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+                     None, faces_intense, bg)
+    F = faces.shape[0]
+    _chk(tets.ndim == 2 and tets.shape[1] == 4,
+         f"tets must be [T,4], got {tuple(tets.shape)}")
+    T = tets.shape[0]
+    _chk(tuple(face_tets.shape) == (F, 2),
+         f"face_tets must be [F,2]=({F},2), got {tuple(face_tets.shape)}")
+    _chk(tuple(tet_faces.shape) == (T, 4),
+         f"tet_faces must be [T,4]=({T},4), got {tuple(tet_faces.shape)}")
+    # the same tet-count limit as the JAX package, so both packages accept
+    # the same scenes
+    _chk(T < (1 << 22),
+         f"at most 2^22-1 tets supported (entry-slot gather indices "
+         f"tet*4+slot ride in f32-exact march tables), got T={T}")
