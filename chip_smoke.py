@@ -1,5 +1,5 @@
-"""Drive the torch port's tri renderer (forward and backward) and tet
-renderer (forward) on one CUDA card and check them.
+"""Drive the torch port's tri renderer and tet renderer, forward and
+backward, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -48,7 +48,24 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 14. the tet edge cases on the card: the dense first hit (<= 2048 faces)
     against the forced binned one, B=2 at the headline grid, jittered rays
     bit-equal to the CPU's, and the empty-geometry fill;
-15. print one JSON line of per-kernel numbers, and as the last line
+15. hold the tet backward march kernel (K5, ``bwd_march``) against its plain
+    version with a fixed random upstream gradient, keys, records, mismatch
+    flags and both gradients bit for bit, at the small tet scene and the
+    tet headline, and ``seg_sum`` at the tet reduce's shapes; print the
+    re-walk mismatch count; time K5 and work out its bound from the run's
+    counts;
+16. drive the tet training path, ``TetRenderer`` on leaf ``verts_color``
+    and ``faces_opacity`` at the tet headline with the loss sum(color) +
+    sum(depth), then ``backward()``, counts set to 0 just before and read
+    just after (K3, K4 and K5 once each, ``seg_sum`` twice); run it twice
+    (bitwise equal), time it and split it; then time the tet forward
+    without gradients again (no K5);
+17. ``models.dmesh.make_tet_train_step`` with Adam(1e-2) at the tet
+    headline (zero target and background), 5 steps: the loss falls;
+18. the tet backward's edge cases: the card's gradients against the port's
+    on the CPU at the small tet scene, zero gradients of empty geometry,
+    and B=2 at the headline grid with gradients;
+19. print one JSON line of per-kernel numbers, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -121,6 +138,19 @@ OPS_PER_FH_VISIT = 41
 OPS_PER_BLEND = 44
 OPS_PER_WALK = 4 * (27 + 51 + 5)
 FH_ROW_BYTES = 16 * 4 + 4  # first-hit table row and its slot_face entry
+# f32 operations of a K5 visit: barycentric 2, colour 18, depth 9, log T 1,
+# exp 1, the four suffix accumulators 16, dL/dalpha 12 and its background
+# term 7, the weight 2, the nine colour moments 12, termination 2; a K5
+# walk step does K4's (OPS_PER_WALK)
+OPS_PER_BWD_VISIT = 82
+# per ray with records, what K5 reads: ray 12, zw 16, start face/tet and
+# first face 12, the 11 float rows 44, its slot offset 8; per ray its record
+# count 4 and mismatch flag 1; per record the key 4 and 10 values 40
+K5_RAY_BYTES = 12 + 16 + 12 + 44 + 8
+K5_REC_BYTES = 4 + 10 * 4
+# the card's tet gradients against the port's on the CPU, rel Linf: the two
+# devices' exp and log differ in the last bits (hazard g)
+TET_CARD_CPU_RTOL = 1e-5
 
 
 def log(*a):
@@ -584,15 +614,18 @@ def tet_phases(dev):
     settings = port.TetRenderSettings(H, W, bg)
     renderer = port.TetRenderer(settings, device="cuda")
     counts = (tb.fwd_composite, tb.bwd_composite, rd.seg_sum, pfh.first_hit,
-              pt.fwd_march)
+              pt.fwd_march, pt.bwd_march)
     for c in counts:
         c.launches = 0
     color, depth, active, (ovf, n_rendered) = renderer(*user, return_aux=True)
     torch.cuda.synchronize()
     launches = {"tet_first_hit": pfh.first_hit.launches,
-                "tet_fwd_march": pt.fwd_march.launches}
-    check(launches == {"tet_first_hit": 1, "tet_fwd_march": 1},
+                "tet_fwd_march": pt.fwd_march.launches,
+                "tet_bwd_march": pt.bwd_march.launches}
+    check(launches == {"tet_first_hit": 1, "tet_fwd_march": 1,
+                       "tet_bwd_march": 0},
           f"tet serving path launches {launches}")
+    check(color.grad_fn is None, "tet serving path recorded a graph")
     check(all(c.launches == 0 for c in counts[:3]),
           "tet serving path ran a tri kernel")
     check(color.shape == (1, 3, H, W) and depth.shape == (1, 1, H, W)
@@ -729,7 +762,294 @@ def tet_phases(dev):
     info = {"tet_forward_ms": tet_ms, "tet_forward_split_ms": split,
             "tet_forward_peak_mib": tet_peak / 2**20,
             "tet_card_vs_cpu_pixels": [n_diff, n_near]}
-    return kernels, info
+    head = {"user": user, "fargs": fargs, "bg": bg, "renderer": renderer,
+            "u2": u2, "small": fs}
+    return kernels, info, head
+
+
+def tet_upstream(B, h, w, seed, dev):
+    """A fixed random upstream gradient: dL/dcolor, dL/ddepth on ``dev``."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((B, 3, h, w), generator=g).to(dev),
+            torch.randn((B, 1, h, w), generator=g).to(dev))
+
+
+def k5_inputs(fargs, h, w, seed, gc, gd):
+    """The tet forward on the card, then the inputs of K5."""
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+
+    _c, _d, _a, saved = pt.render_tet_forward(*fargs, h, w, seed)
+    ray_i, ray_f, off, n = pt.bwd_start_state(saved, fargs[10], gc, gd,
+                                              fargs[12])
+    m = saved["march"]
+    return saved, (saved["ray_d"], saved["cam_o"], saved["zw"], ray_i,
+                   ray_f, off, n, m["tet_geo"], m["tet_ids"], m["shade"],
+                   h * w)
+
+
+def compare_k5(fargs, h, w, seed, label, gen_seed):
+    """K5 against its plain version on the same CUDA inputs and a fixed
+    random upstream gradient: keys, records and mismatch flags, and the two
+    gradients reduced from each, bit for bit. Returns (max abs error, the
+    mismatch count, K5's inputs and outputs)."""
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+
+    gc, gd = tet_upstream(fargs[4].shape[0], h, w, gen_seed,
+                          fargs[0].device)
+    _saved, inputs = k5_inputs(fargs, h, w, seed, gc, gd)
+    before = pt.bwd_march.launches
+    got = pt.bwd_march(*inputs)
+    torch.cuda.synchronize()
+    check(pt.bwd_march.launches == before + 1, "K5 did not launch")
+    want = pt.bwd_march_plain(*inputs)
+    check(bool(want[1].any()), f"{label}: K5 records all zero")
+    for name, g, p in zip(("keys", "records", "mismatch flags"), got, want):
+        check(torch.equal(g, p), f"{label}: K5 {name} differ from plain")
+    err = float((got[1] - want[1]).abs().max())
+    F, P = fargs[1].shape[0], fargs[0].shape[0]
+    gk = pt.reduce_tet_records(*got[:2], fargs[1], P)
+    gp = pt.reduce_tet_records(*want[:2], fargs[1], P)
+    for g, p in zip(gk, gp):
+        err = max(err, float((g - p).abs().max()))
+        check(torch.equal(g, p), f"{label}: K5 gradients differ from plain")
+    mism = int(got[2].sum())
+    log(f"K5 vs plain [{label}]: {inputs[6]} records over "
+        f"{int((inputs[3][3] > 0).sum())} rays; keys, records, mismatch "
+        f"flags and both gradients bit-equal (max abs err {err:.3g}); "
+        f"re-walk mismatches {mism}; faces {F}")
+    return err, mism, inputs, got
+
+
+def tet_train_phases(dev, head):
+    """Phases 15-18: K5, the tet training path, the tet train step and the
+    tet backward's edge cases. Returns (K5's JSON entry, the extra entries
+    of seg_sum at the tet reduce, a dict of tet training numbers)."""
+    import dmesh_renderer_tpu_torch as port
+    from dmesh_renderer_tpu_torch.models import dmesh
+    from dmesh_renderer_tpu_torch.ops import reduce as rd
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+    from dmesh_renderer_tpu_torch.ops import tet_first_hit as pfh
+    from dmesh_renderer_tpu_torch.ops import tri_binned as tb
+
+    H, W = TET_HEADLINE["height"], TET_HEADLINE["width"]
+    user, fargs, bg = head["user"], head["fargs"], head["bg"]
+    renderer = head["renderer"]
+    _n, _jit, _gs, b, hs, ws, seed_s = TET_SMALL
+
+    # ---- K5 against plain: the small scene, then the headline
+    err_s, mism_s, _in_s, _out_s = compare_k5(
+        head["small"], hs, ws, seed_s,
+        f"freudenthal_grid(6), {hs}x{ws}, B=2, seed 17", 1)
+    err_h, mism_h, k5_in, k5_out = compare_k5(fargs, H, W, 0,
+                                              "tet headline", 0)
+    k5_ms = cuda_ms(lambda: pt.bwd_march(*k5_in), 2, 10)
+    k5_plain_ms = cuda_ms(lambda: pt.bwd_march_plain(*k5_in), 0, 1)
+
+    # ---- seg_sum against plain at the tet reduce's two shapes
+    F, P = fargs[1].shape[0], fargs[0].shape[0]
+    keys, rec = k5_out[0], k5_out[1]
+    csr = rd.segment_csr(keys, F + 1)
+    face_acc = rd.seg_sum(rec, csr)[:F]
+    corners = face_acc[:, :9].reshape(F * 3, 3)
+    csr_v = rd.segment_csr(fargs[1], P)
+    ss_err = 0.0
+    for label, x, c in (("tet record reduce", rec, csr),
+                        ("tet vertex reduce", corners, csr_v)):
+        s_k = rd.seg_sum(x, c)
+        torch.cuda.synchronize()
+        s_p = rd.seg_sum_plain(x, c)
+        check(bool(s_p.any()), f"seg_sum {label}: all zero")
+        ss_err = max(ss_err, float((s_k - s_p).abs().max()))
+        check(torch.equal(s_k, s_p),
+              f"seg_sum differs from its plain version at the {label}")
+        log(f"seg_sum vs plain at the {label} ({tuple(x.shape)} -> "
+            f"{tuple(s_k.shape)}): bitwise equal")
+
+    # ---- K5's bound on this run's data
+    ray_i = k5_in[3]
+    n_rec = k5_in[6]
+    n_rays = int((ray_i[3] > 0).sum())
+    # every ray but its last record walks back one step (all rays retrace
+    # the forward when the mismatch count is 0)
+    walks = n_rec - n_rays
+    M = ray_i.shape[1]
+    m_tab = k5_in[7:10]
+    k5_bytes = (M * (4 + 1) + n_rays * K5_RAY_BYTES + n_rec * K5_REC_BYTES
+                + sum(x.numel() * 4 for x in m_tab) + k5_in[1].numel() * 4)
+    k5_bound, k5_by, k5_ops_ms, k5_bytes_ms = bound(
+        n_rec * OPS_PER_BWD_VISIT + walks * OPS_PER_WALK, k5_bytes)
+    log(f"K5 at tet headline: {k5_ms:.4f} ms; plain {k5_plain_ms:.2f} ms. "
+        f"Work: {n_rec} records over {n_rays} rays, {walks} walk steps -> "
+        f"{k5_ops_ms:.4f} ms; {k5_bytes} bytes -> {k5_bytes_ms:.4f} ms; "
+        f"bound {k5_bound:.4f} ms by {k5_by}")
+
+    # ---- the tet training path: TetRenderer with gradients at the headline
+    leaves = [user[i].detach().clone().requires_grad_(True) for i in (2, 3)]
+
+    def fwd():
+        return renderer(user[0], user[1], leaves[0], leaves[1], *user[4:])
+
+    def fwd_bwd():
+        for x in leaves:
+            x.grad = None
+        c, d, _a = fwd()
+        (c.sum() + d.sum()).backward()
+
+    counts = (tb.fwd_composite, tb.bwd_composite, rd.seg_sum, pfh.first_hit,
+              pt.fwd_march, pt.bwd_march)
+    for c in counts:
+        c.launches = 0
+    fwd_bwd()
+    torch.cuda.synchronize()
+    launches = {"tet_first_hit": pfh.first_hit.launches,
+                "tet_fwd_march": pt.fwd_march.launches,
+                "tet_bwd_march": pt.bwd_march.launches,
+                "seg_sum": rd.seg_sum.launches}
+    check(launches == {"tet_first_hit": 1, "tet_fwd_march": 1,
+                       "tet_bwd_march": 1, "seg_sum": 2},
+          f"tet training path launches {launches}")
+    check(tb.fwd_composite.launches == 0 and tb.bwd_composite.launches == 0,
+          "tet training path ran a tri kernel")
+    train_mism = int(pt.bwd_march.mismatches)
+    g1 = [x.grad.clone() for x in leaves]
+    for x, g in zip(leaves, g1):
+        check(g.shape == x.shape and bool(torch.isfinite(g).all())
+              and bool(g.any()), "tet training-path gradients")
+    fwd_bwd()
+    check(all(torch.equal(x.grad, g) for x, g in zip(leaves, g1)),
+          "tet headline gradients differ between two runs")
+    log(f"tet training path: launches {launches}; re-walk mismatches "
+        f"{train_mism}; both gradients finite, nonzero, bitwise equal across "
+        f"two runs")
+    fb_ms = cuda_ms(fwd_bwd, 2, 10)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    fb_peak = torch.cuda.max_memory_allocated() - base_mem
+
+    ones = (torch.ones((1, 3, H, W), device=dev),
+            torch.ones((1, 1, H, W), device=dev))
+    saved, in1 = k5_inputs(fargs, H, W, 0, *ones)
+    keys1, rec1, _bad1 = pt.bwd_march(*in1)
+    acc1 = rd.seg_sum(rec1, rd.segment_csr(keys1, F + 1))[:F]
+    fb_split = {
+        "recording forward": cuda_ms(fwd, 2, 10),
+        "start state": cuda_ms(lambda: pt.bwd_start_state(
+            saved, fargs[10], *ones, fargs[12]), 2, 10),
+        "K5": cuda_ms(lambda: pt.bwd_march(*in1), 2, 10),
+        "record reduce": cuda_ms(lambda: rd.seg_sum(
+            rec1, rd.segment_csr(keys1, F + 1)), 2, 10),
+        "vertex reduce": cuda_ms(lambda: rd.corner_sum(
+            fargs[1], P, acc1[:, :9].reshape(F * 3, 3)), 2, 10),
+    }
+    fb_split["rest"] = fb_ms - sum(fb_split.values())
+    for c in counts:
+        c.launches = 0
+    renderer(*user)
+    torch.cuda.synchronize()
+    check((pfh.first_hit.launches, pt.fwd_march.launches,
+           pt.bwd_march.launches, rd.seg_sum.launches) == (1, 1, 0, 0),
+          "the tet serving path after training launched a backward kernel")
+    fwd_nograd_ms = cuda_ms(lambda: renderer(*user), 2, 10)
+    log(f"tet fwd+bwd: {fb_ms:.3f} ms/frame (peak extra memory "
+        f"{fb_peak / 2**20:.1f} MiB); split (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in fb_split.items())
+        + f"; the tet forward without gradients, timed next: "
+          f"{fwd_nograd_ms:.3f} ms (K3 and K4 once, no K5)")
+
+    # ---- make_tet_train_step with Adam(1e-2) at the headline
+    geom = dmesh.TetGeometry(fargs[0], fargs[1], fargs[9], fargs[10],
+                             fargs[11])
+    scene = dmesh.TetScene(*[user[i].detach().clone().requires_grad_(True)
+                             for i in (2, 3)])
+    batch = dmesh.TetViewBatch(*fargs[4:9], torch.zeros((1, 3, H, W),
+                                                        device=dev))
+    state = dmesh.init_tet_train_state(
+        scene, lambda p: torch.optim.Adam(p, lr=1e-2))
+    step = dmesh.make_tet_train_step(geom, torch.zeros(3, device=dev), H, W)
+    losses, step_times = [], []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, loss = step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        step_times.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+    check(all(np.isfinite(x) for x in losses), f"tet train losses {losses}")
+    check(losses[-1] < losses[0], f"tet train loss did not fall: {losses}")
+    step_ms = float(np.mean(step_times[1:]))
+    log(f"tet train step (Adam 1e-2, zero target and background): losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + f"; {step_ms:.3f} ms/step "
+        f"(mean of steps 2-5; step 1 {step_times[0]:.3f} ms)")
+
+    # ---- the tet backward's edge cases on the card
+    fs = head["small"]
+    gc, gd = tet_upstream(b, hs, ws, 2, dev)
+
+    def small_grads(t):
+        t = list(t)
+        for i in (2, 3):
+            t[i] = t[i].detach().clone().requires_grad_(True)
+        c, d, _a = pt.render_tet_core(*t, hs, ws, seed_s)
+        ((c * gc.to(t[0].device)).sum()
+         + (d * gd.to(t[0].device)).sum()).backward()
+        return t[2].grad, t[3].grad
+
+    g_card = small_grads(fs)
+    g_cpu = small_grads([x.cpu() for x in fs])
+    e_cc = max(rel(a.cpu(), b_) for a, b_ in zip(g_card, g_cpu))
+    check(e_cc <= TET_CARD_CPU_RTOL,
+          f"tet gradients card vs CPU: rel err {e_cc}")
+    u = user
+    bg_leaf = bg.clone().requires_grad_(True)
+    r_empty = port.TetRenderer(port.TetRenderSettings(64, 48, bg_leaf),
+                               "cuda")
+    lv = [u[2].clone().requires_grad_(True), u[3][:0].clone()
+          .requires_grad_(True)]
+    c, d, _a = r_empty(u[0], u[1][:0], lv[0], lv[1], u[4], u[5], u[6],
+                       u[7][:, :0], u[8], u[9][:0], u[10])
+    (c.sum() + d.sum()).backward()
+    check(all(x.grad is not None and x.grad.shape == x.shape
+              and not bool(x.grad.any()) for x in lv),
+          "empty tet geometry: verts_color/faces_opacity grads must be zeros")
+    check(torch.equal(bg_leaf.grad, torch.full((3,), 64.0 * 48.0,
+                                               device=dev)),
+          "empty tet geometry: bg must get the fill's gradient")
+    u2 = head["u2"]
+    lv2 = [u2[i].detach().clone().requires_grad_(True) for i in (2, 3)]
+    before = pt.bwd_march.launches
+    c2, d2, _a2 = port.TetRenderer(port.TetRenderSettings(H, W, bg), "cuda")(
+        u2[0], u2[1], lv2[0], lv2[1], *u2[4:])
+    (c2.sum() + d2.sum()).backward()
+    torch.cuda.synchronize()
+    check(pt.bwd_march.launches == before + 1, "B=2 tet did not run K5")
+    check(all(bool(torch.isfinite(x.grad).all() and x.grad.any())
+              for x in lv2), "B=2 tet gradients")
+    log(f"tet backward edge cases: card vs the port on the CPU at "
+        f"freudenthal_grid(6), {hs}x{ws}, B=2: gradients rel err {e_cc:.3g} "
+        f"(tol {TET_CARD_CPU_RTOL}); empty geometry: zero gradients, bg the "
+        f"fill's; B=2 headline grid with gradients ok")
+
+    k5 = {"route": "cuda", "name": "tet_bwd_march",
+          "source": "dmesh_renderer_tpu_torch/csrc/tet_bwd.cu",
+          "replaces": "dmesh_renderer_tpu/ops/tet.py:606",
+          "launches": launches["tet_bwd_march"],
+          "max_abs_err": max(err_s, err_h), "ms": k5_ms,
+          "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
+          "library_ms": None, "records": n_rec, "rays": n_rays,
+          "walk_steps": walks,
+          "rewalk_mismatches": [mism_s, mism_h, train_mism]}
+    info = {"tet_fwd_bwd_ms": fb_ms, "tet_fwd_bwd_split_ms": fb_split,
+            "tet_fwd_bwd_peak_mib": fb_peak / 2**20,
+            "tet_forward_no_grad_after_ms": fwd_nograd_ms,
+            "tet_train_step_ms": step_ms, "tet_train_losses": losses,
+            "tet_seg_sum_launches": launches["seg_sum"],
+            "tet_seg_sum_max_abs_err": ss_err,
+            "tet_card_vs_cpu_grad_rel_err": e_cc}
+    return k5, info
 
 
 def main() -> int:
@@ -1075,7 +1395,8 @@ def main() -> int:
     log("B=2 800x800 20k tris with gradients: finite, per-view depth and "
         "intensity gradients nonzero in both views")
 
-    tet_kernels, tet_info = tet_phases(dev)
+    tet_kernels, tet_info, tet_head = tet_phases(dev)
+    k5_entry, tet_train_info = tet_train_phases(dev, tet_head)
 
     common = {"route": "cuda"}
     log(json.dumps({"kernels": [
@@ -1105,15 +1426,18 @@ def main() -> int:
          "replaces": "dmesh_renderer_tpu/ops/tri_binned.py:301 "
                      "(_reduce_records, an XLA scatter-add: port glue, "
                      "not a TPU kernel)",
-         "launches": launches["seg_sum"], "max_abs_err": ss_err,
+         "launches": launches["seg_sum"],
+         "launches_tet_train": tet_train_info["tet_seg_sum_launches"],
+         "max_abs_err": max(ss_err,
+                            tet_train_info["tet_seg_sum_max_abs_err"]),
          "ms": ss_ms, "plain_ms": ss_plain_ms, "bound_ms": ss_bound,
          "bound_by": ss_by, "library_ms": ss_lib_ms,
          "shape": [N, C, F]},
-        *tet_kernels,
+        *tet_kernels, k5_entry,
     ], "fwd_bwd_ms": fb_ms, "fwd_bwd_split_ms": fb_split,
         "fwd_bwd_peak_mib": fb_peak / 2**20,
         "forward_no_grad_after_ms": fwd_nograd_ms, "train_step_ms": step_ms,
-        "train_losses": losses, **tet_info}))
+        "train_losses": losses, **tet_info, **tet_train_info}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))
     return 0

@@ -5,9 +5,10 @@ slice by slice. This package imports torch and NumPy, never JAX, and nothing
 of the JAX package. It holds the tri renderer with its five gradients: the
 dense oracle and the tile-binned path, whose compositing forward and
 backward are the hand-written CUDA kernels ``csrc/tri_fwd.cu`` and
-``csrc/tri_bwd.cu``, and the single-device train step of
-``models/dmesh.py``; and the tet renderer's forward, whose binned first hit
-and ray march are the kernels of ``csrc/tet_fwd.cu``.
+``csrc/tri_bwd.cu``; the tet renderer with the gradients of vertex colours
+and face opacities, whose binned first hit and ray march are the kernels of
+``csrc/tet_fwd.cu`` and whose backward march is ``csrc/tet_bwd.cu``; and
+the single-device train steps of both (``models/dmesh.py``).
 """
 
 from .api import (
@@ -18,6 +19,23 @@ from .api import (
     render_tet,
     render_tri,
 )
+from .models.dmesh import (
+    TetGeometry,
+    TetScene,
+    TetViewBatch,
+    TrainState,
+    TriScene,
+    ViewBatch,
+    init_tet_train_state,
+    init_train_state,
+    make_tet_train_loop,
+    make_tet_train_step,
+    make_train_loop,
+    make_train_step,
+)
 
-__all__ = ["TetRenderSettings", "TetRenderer", "TriRenderSettings",
-           "TriRenderer", "render_tet", "render_tri"]
+__all__ = ["TetGeometry", "TetRenderSettings", "TetRenderer", "TetScene",
+           "TetViewBatch", "TrainState", "TriRenderSettings", "TriRenderer",
+           "TriScene", "ViewBatch", "init_tet_train_state",
+           "init_train_state", "make_tet_train_loop", "make_tet_train_step",
+           "make_train_loop", "make_train_step", "render_tet", "render_tri"]

@@ -11,9 +11,9 @@ Entry points run on ``device="cuda"`` unless the caller passes another
 device; asking for CUDA where there is no card raises. Tri gradients flow
 to ``verts``, ``verts_color``, ``faces_opacity``, ``verts_depth`` and
 ``faces_intense`` (through the casts to float32 and to ``device``); faces,
-the matrices and ``bg`` get none, as in the reference renderer. The tet
-renderer is forward only for now: it raises NotImplementedError when an
-input requires grad.
+the matrices and ``bg`` get none, as in the reference renderer. Tet
+gradients flow to ``verts_color`` and ``faces_opacity``; the other float
+inputs that require grad get zeros, as in the reference renderer.
 """
 
 from __future__ import annotations
@@ -140,8 +140,9 @@ def render_tet(verts, faces, verts_color, faces_opacity, mv_mats, proj_mats,
     and, with ``return_aux``, ``(overflow, num_rendered)`` of the binned
     first hit (``(False, -1)`` on the dense path). ``verts_depth`` is
     accepted and unused. With no vertices, faces or tets every pixel is
-    background with depth 1, inactive, and the aux is ``(False, 0)``."""
-    from .ops.tet import check_no_grad, render_tet_core
+    background with depth 1, inactive, and the aux is ``(False, 0)``; then
+    ``bg`` gets the fill's gradient and the other float inputs zeros."""
+    from .ops.tet import render_tet_core, render_tet_empty
     from .validation import check_tet_inputs
 
     dev = resolve_device(device)
@@ -159,7 +160,6 @@ def render_tet(verts, faces, verts_color, faces_opacity, mv_mats, proj_mats,
         tet_faces=_as_tensor(tet_faces, i32, dev),
         bg=_as_tensor(render_settings.bg, f32, dev),
     )
-    check_no_grad(mv_t, proj_t, verts_depth, *a.values())
     check_tet_inputs(a["verts"], a["faces"], a["verts_color"],
                      a["faces_opacity"], mv_t, proj_t, a["faces_intense"],
                      a["tets"], a["face_tets"], a["tet_faces"], a["bg"])
@@ -170,9 +170,9 @@ def render_tet(verts, faces, verts_color, faces_opacity, mv_mats, proj_mats,
             or a["tets"].shape[0] == 0):
         # no geometry: no ray finds a first hit, so every pixel takes the
         # inactive fill
-        color = a["bg"].reshape(1, 3, 1, 1).expand(B, 3, H, W).contiguous()
-        depth = torch.ones((B, 1, H, W), dtype=f32, device=dev)
-        active = torch.zeros((B, H, W), dtype=torch.bool, device=dev)
+        color, depth, active = render_tet_empty(
+            B, H, W, a["bg"], a["verts"], a["verts_color"],
+            a["faces_opacity"], mv_t, proj_t, a["faces_intense"])
         if return_aux:
             return color, depth, active, (torch.tensor(False, device=dev),
                                           torch.tensor(0, device=dev))

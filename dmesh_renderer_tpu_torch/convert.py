@@ -7,7 +7,9 @@ and returns the port's tensors holding the same bits, so that both packages
 can be fed identical inputs, inverse matrices included;
 ``tet_args_from_numpy`` does the same for the tet call.
 ``tri_scene_from_numpy`` and ``view_batch_from_numpy`` do the same for the
-train step's ``TriScene`` and ``ViewBatch`` (models/dmesh.py).
+train step's ``TriScene`` and ``ViewBatch`` (models/dmesh.py), and
+``tet_scene_from_numpy`` and ``tet_view_batch_from_numpy`` for the tet train
+step's ``TetScene`` and ``TetViewBatch``.
 """
 
 from __future__ import annotations
@@ -72,6 +74,28 @@ def view_batch_from_numpy(mv_t, proj_t, inv_mv_t, inv_proj_t, verts_depth,
                        .to(device)
                        for a in (mv_t, proj_t, inv_mv_t, inv_proj_t,
                                  verts_depth, faces_intense, target)))
+
+
+def tet_scene_from_numpy(verts_color, faces_opacity, device="cuda"):
+    """The JAX package's ``TetScene`` arrays -> the port's ``TetScene`` of
+    f32 leaf tensors on ``device`` that require grad."""
+    from .models.dmesh import TetScene
+
+    return TetScene(*(torch.from_numpy(np.array(a, dtype=np.float32))
+                      .to(device).requires_grad_(True)
+                      for a in (verts_color, faces_opacity)))
+
+
+def tet_view_batch_from_numpy(mv_t, proj_t, inv_mv_t, inv_proj_t,
+                              faces_intense, target, device="cuda"):
+    """The JAX package's ``TetViewBatch`` arrays -> the port's
+    ``TetViewBatch`` of f32 tensors on ``device``."""
+    from .models.dmesh import TetViewBatch
+
+    return TetViewBatch(*(torch.from_numpy(np.array(a, dtype=np.float32))
+                          .to(device)
+                          for a in (mv_t, proj_t, inv_mv_t, inv_proj_t,
+                                    faces_intense, target)))
 
 
 def outputs_to_numpy(outputs):

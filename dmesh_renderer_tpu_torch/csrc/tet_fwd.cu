@@ -27,10 +27,11 @@
 // terminates when T < 1e-4 or the walk has left the mesh, and otherwise
 // walks to the exit face of the current tet: the strict hit among the three
 // other faces whose outward normal has a positive dot with the ray (the last
-// such in slot order; slot 0 when none). The reference's three invariant
-// violations (not three other faces, an entry face that does not oppose the
-// ray, not exactly one exit) end the walk with the pixel inactive. A thread
-// that is done retires: there is no lockstep, compaction or march log.
+// such in slot order; slot 0 when none; tet_walk.cuh). The reference's three
+// invariant violations (not three other faces, an entry face that does not
+// oppose the ray, not exactly one exit) end the walk with the pixel inactive.
+// A thread that is done retires: there is no lockstep, compaction or march
+// log.
 //
 // What a K4 step reads: the tet's 40-float geometry row (p0, e1, e2 of the
 // four face slots and the four outward signs) and 8-int id row (face and
@@ -49,23 +50,25 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tet_walk.cuh"
+
 namespace {
+
+using tet::clamp_w;
+using tet::kSH;
+using tet::kTG;
+using tet::kTI;
 
 constexpr int kTile = 32;
 constexpr int kQuad = 16;
 constexpr int kRound = kQuad * kQuad;
 constexpr float kBig = 3.0e38f;
 constexpr float kTEps = 1e-4f;
-constexpr float kWEps = 1e-4f;
 
 // first-hit table columns ([B*F, 16] f32, depth-sorted rows)
 constexpr int kFH = 16;
 constexpr int kTV = 0, kE1 = 3, kE2 = 6, kQV = 9, kMinD = 12, kMaxD = 13,
               kFid = 14;
-
-// march tables: tet geometry [T, 40] f32, tet ids [T, 8] int32, shade
-// [B*F, 12] f32
-constexpr int kTG = 40, kTI = 8, kSH = 12;
 
 __global__ void __launch_bounds__(kRound)
 tet_first_hit_kernel(const int* __restrict__ starts,
@@ -158,12 +161,6 @@ tet_first_hit_kernel(const int* __restrict__ starts,
   face[pix] = bface;
 }
 
-__device__ __forceinline__ float clamp_w(float w) {
-  if (w >= 0.0f && w < kWEps) return kWEps;
-  if (w < 0.0f && w > -kWEps) return -kWEps;
-  return w;
-}
-
 __global__ void __launch_bounds__(128)
 tet_fwd_march_kernel(const float* __restrict__ ray_d,
                      const float* __restrict__ cam_o,
@@ -222,63 +219,11 @@ tet_fwd_march_kernel(const float* __restrict__ ray_d,
       break;
     }
 
-    // --- walk to the exit face of tet ct ---
-    const float* g = tet_geo + (size_t)ct * kTG;
-    const int* ids = tet_ids + (size_t)ct * kTI;
-    int n_other = 0, n_exit = 0;
-    float d_entry = 0.0f;
-    float nt_ = 0.0f, nu_ = 0.0f, nv_ = 0.0f;
-    int nface = -1, ntet = -1;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float p0x = g[9 * j + 0], p0y = g[9 * j + 1], p0z = g[9 * j + 2];
-      const float e1x = g[9 * j + 3], e1y = g[9 * j + 4], e1z = g[9 * j + 5];
-      const float e2x = g[9 * j + 6], e2y = g[9 * j + 7], e2z = g[9 * j + 8];
-      const float sgn = g[36 + j];
-      const int tfj = ids[j], nbj = ids[4 + j];
-
-      const float nx = e1y * e2z - e1z * e2y;
-      const float ny = e1z * e2x - e1x * e2z;
-      const float nz = e1x * e2y - e1y * e2x;
-      const float norm = fmaxf(sqrtf(nx * nx + ny * ny + nz * nz), 1e-4f);
-      const float outd =
-          sgn * ((nx / norm) * dx + (ny / norm) * dy + (nz / norm) * dz);
-
-      const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
-      const float pvx = dy * e2z - dz * e2y;
-      const float pvy = dz * e2x - dx * e2z;
-      const float pvz = dx * e2y - dy * e2x;
-      const float qvx = tvy * e1z - tvz * e1y;
-      const float qvy = tvz * e1x - tvx * e1z;
-      const float qvz = tvx * e1y - tvy * e1x;
-      const float denom = pvx * e1x + pvy * e1y + pvz * e1z;
-      const bool nd = denom != 0.0f;
-      const float inv = 1.0f / (nd ? denom : 1.0f);
-      const float tj = (qvx * e2x + qvy * e2y + qvz * e2z) * inv;
-      const float uj = (pvx * tvx + pvy * tvy + pvz * tvz) * inv;
-      const float vj = (qvx * dx + qvy * dy + qvz * dz) * inv;
-      const bool hit =
-          nd && tj >= 0.0f && uj >= 0.0f && vj >= 0.0f && uj + vj <= 1.0f;
-
-      const bool is_entry = tfj == cf;
-      n_other += is_entry ? 0 : 1;
-      d_entry = d_entry + (is_entry ? outd : 0.0f);
-      const bool ex = !is_entry && hit && outd > 0.0f;
-      n_exit += ex ? 1 : 0;
-      if (j == 0 || ex) {
-        nt_ = tj;
-        nu_ = uj;
-        nv_ = vj;
-        nface = tfj;
-        ntet = nbj;
-      }
-    }
-    if (n_other != 3 || d_entry >= 0.0f || n_exit != 1) break;  // inactive
-    t = nt_;
-    u = nu_;
-    v = nv_;
-    cf = nface;
-    ct = ntet;
+    // --- walk to the exit face of tet ct; an invariant violation leaves
+    // the pixel inactive ---
+    if (tet::walk_step<1>(tet_geo + (size_t)ct * kTG, tet_ids + (size_t)ct * kTI,
+                          cf, ox, oy, oz, dx, dy, dz, t, u, v, cf, ct))
+      break;
   }
 
   out_f[0 * (size_t)M + i] = Cr;

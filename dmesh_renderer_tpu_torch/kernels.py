@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (``extern "C"`` launchers
 that return ``cudaGetLastError()``). It is compiled with nvcc for sm_90a
-into ``_build/lib<name>.so`` at first use, or again when the source is
-newer than the library, and loaded with ctypes. A build that fails raises:
-there is no fallback.
+into ``_build/lib<name>.so`` at first use, or again when the source or a
+header of ``csrc/`` (``*.cuh``) is newer than the library, and loaded with
+ctypes. A build that fails raises: there is no fallback.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
          -shared -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
@@ -36,6 +36,7 @@ SIGNATURES = {
                 "seg_sum": [_P] * 4 + [_I] * 2 + [_P]},
     "tet_fwd": {"tet_first_hit": [_P] * 8 + [_I] * 3 + [_P],
                 "tet_fwd_march": [_P] * 11 + [_I] * 4 + [_F, _P]},
+    "tet_bwd": {"tet_bwd_march": [_P] * 12 + [_I] * 3 + [_P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -56,8 +57,13 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any header of
+    ``csrc/`` (a source may include one)."""
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in [src, *SRC_DIR.glob("*.cuh")])
+    return lib.stat().st_mtime < newest
 
 
 def build(names=None, extra_flags=()) -> dict[str, str]:

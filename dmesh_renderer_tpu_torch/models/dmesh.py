@@ -1,9 +1,12 @@
-"""DMesh-style multi-view optimisation of a triangle scene, in PyTorch.
+"""DMesh-style multi-view optimisation, in PyTorch.
 
-A port of the tri half of the JAX package's ``models/dmesh.py``: a batch of
-camera views is rendered, compared with target images by an L2 loss, and
-the scene parameters (vertex positions and colours, face opacities) take an
-optimiser step. The tet half waits for the tet renderer's port.
+A port of the JAX package's ``models/dmesh.py``: a batch of camera views is
+rendered, compared with target images by an L2 loss, and the scene
+parameters take an optimiser step. The tri half optimises vertex positions
+and colours and face opacities; the tet half (DMesh's second phase) renders
+through the tessellation with exact depth order and optimises vertex
+colours and face opacities, its loss the squared error over the pixels the
+renderer marks active, divided by their count.
 
 Where the JAX package threads an optax state through a jitted pure step,
 the port keeps a ``torch.optim`` optimiser over the scene's leaf tensors in
@@ -19,6 +22,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..ops.tet import render_tet_core
 from ..ops.tri import render_tri_auto
 
 
@@ -112,6 +116,98 @@ def make_train_loop(faces, bg, height: int, width: int, n_steps: int,
                            kcap=kcap)
 
     def loop(state: TrainState, batch: ViewBatch):
+        losses = []
+        for _ in range(n_steps):
+            state, loss = step(state, batch)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return loop
+
+
+# =============================================================================
+# Tet-renderer optimisation (gradients reach vertex colours and face
+# opacities only)
+# =============================================================================
+
+class TetScene(NamedTuple):
+    """Learnable tet-scene parameters (leaf tensors): the tet renderer's
+    only differentiable inputs."""
+    verts_color: torch.Tensor    # [P, 3]
+    faces_opacity: torch.Tensor  # [F]
+
+
+class TetGeometry(NamedTuple):
+    """Static tessellation structure."""
+    verts: torch.Tensor      # [P, 3]
+    faces: torch.Tensor      # [F, 3] int32
+    tets: torch.Tensor       # [T, 4] int32
+    face_tets: torch.Tensor  # [F, 2] int32
+    tet_faces: torch.Tensor  # [T, 4] int32
+
+
+class TetViewBatch(NamedTuple):
+    """Per-view inputs (leading axis = views)."""
+    mv_t: torch.Tensor           # [B, 4, 4] transposed modelview
+    proj_t: torch.Tensor         # [B, 4, 4] transposed projection
+    inv_mv_t: torch.Tensor       # [B, 4, 4]
+    inv_proj_t: torch.Tensor     # [B, 4, 4]
+    faces_intense: torch.Tensor  # [B, F]
+    target: torch.Tensor         # [B, 3, H, W] target images
+
+
+def make_tet_se_fn(geom: TetGeometry, bg, height: int, width: int,
+                   seed: int = 0):
+    """``se_fn(scene, batch) -> (se, count)``: the squared error of the
+    rendered colour against ``batch.target`` summed over the active pixels
+    (inactive ones render pure background and are left out), and the
+    number of values summed (3 per active pixel)."""
+    def se_fn(scene: TetScene, batch: TetViewBatch):
+        color, _depth, active = render_tet_core(
+            geom.verts, geom.faces, scene.verts_color, scene.faces_opacity,
+            batch.mv_t, batch.proj_t, batch.inv_mv_t, batch.inv_proj_t,
+            batch.faces_intense, geom.tets, geom.face_tets, geom.tet_faces,
+            bg, height, width, seed)
+        m = active[:, None].to(torch.float32)
+        return torch.sum(m * (color - batch.target) ** 2), torch.sum(m) * 3.0
+    return se_fn
+
+
+def init_tet_train_state(
+        scene: TetScene,
+        optimizer: Callable[[list], torch.optim.Optimizer]) -> TrainState:
+    """A train state whose optimiser, ``optimizer(list(scene))``, updates
+    the tet scene's tensors (leaves that require grad)."""
+    return TrainState(scene, None, optimizer(list(scene)))
+
+
+def make_tet_train_step(geom: TetGeometry, bg, height: int, width: int,
+                        mesh=None, seed: int = 0):
+    """``step(state, batch) -> (state, loss)``: one render, the masked mean
+    squared error ``se / max(count, 1)``, its backward and one optimiser
+    step on ``state.scene``. ``loss`` is detached."""
+    _no_mesh(mesh)
+    se_fn = make_tet_se_fn(geom, bg, height, width, seed)
+
+    def step(state: TrainState, batch: TetViewBatch):
+        opt = state.opt_state
+        opt.zero_grad(set_to_none=True)
+        se, cnt = se_fn(state.scene, batch)
+        loss = se / torch.clamp_min(cnt, 1.0)
+        loss.backward()
+        opt.step()
+        return state, loss.detach()
+
+    return step
+
+
+def make_tet_train_loop(geom: TetGeometry, bg, height: int, width: int,
+                        n_steps: int, mesh=None, seed: int = 0):
+    """``loop(state, batch) -> (state, losses [n_steps])``: ``n_steps``
+    tet train steps on the same batch."""
+    step = make_tet_train_step(geom, bg, height, width, mesh=mesh, seed=seed)
+
+    def loop(state: TrainState, batch: TetViewBatch):
         losses = []
         for _ in range(n_steps):
             state, loss = step(state, batch)

@@ -1,7 +1,7 @@
 """Deterministic segment sum: rows of a [N, C] f32 tensor into segments.
 
-The backward's per-face record reduce and per-vertex scatter both go
-through this module. torch's CUDA ``index_add_``, ``scatter_add_`` and
+The backward's per-face record reduce and per-vertex scatter, of the tri
+and the tet renderer alike, go through this module. torch's CUDA ``index_add_``, ``scatter_add_`` and
 ``index_put_(accumulate=True)`` on floats use atomics, so their sums change
 from run to run; the renderer's gradients are bitwise deterministic, so
 they cannot use them.
@@ -99,13 +99,20 @@ def seg_sum(values: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
 seg_sum.launches = 0
 
 
+def corner_sum(faces, n_verts: int, rows):
+    """Per-corner rows -> per-vertex sums, one segment sum: ``rows``
+    [F * 3, C] holds one row per face corner (corner c of face f at row
+    3 f + c); returns [P, C]."""
+    return seg_sum(rows, segment_csr(faces, n_verts))
+
+
 def faces_to_verts(faces, n_verts: int, g_p, g_vc, g_vd):
     """Per-face corner gradients -> per-vertex gradients, one segment sum.
 
     faces [F, 3]; g_p, g_vc [F, 3 corners, 3] (positions, colours); g_vd
     [B, F, 3] (per-view vertex depths). Returns (g_verts [P, 3], g_vcolor
     [P, 3], g_vdepth [B, P])."""
-    acc = seg_sum(corner_rows(g_p, g_vc, g_vd), segment_csr(faces, n_verts))
+    acc = corner_sum(faces, n_verts, corner_rows(g_p, g_vc, g_vd))
     return acc[:, 0:3], acc[:, 3:6], acc[:, 6:].t().contiguous()
 
 

@@ -1,8 +1,9 @@
-"""Tet renderer forward: the first hit and the march through the tets.
+"""Tet renderer: the first hit, the march through the tets, and its
+backward.
 
-A port of the forward of the JAX package's ``ops/tet.py``. The renderer
-composites the faces of a tetrahedral tessellation with exact depth order by
-walking each pixel's ray through the tet connectivity:
+A port of the JAX package's ``ops/tet.py``. The renderer composites the
+faces of a tetrahedral tessellation with exact depth order by walking each
+pixel's ray through the tet connectivity:
 
   project_verts + preprocess_faces
   -> generate_rays (tet norm mode, optional threefry jitter)
@@ -18,12 +19,26 @@ The ``active`` mask is true only where the march ended validly (T
 exhausted or the ray left the mesh); rays that miss the mesh or whose walk
 breaks render the background with depth 1.
 
+The backward (``_RenderTet``) gives the reference's gradient surface:
+``verts_color`` and ``faces_opacity``; every other float input gets zeros.
+It re-walks every active ray from its last face back to its first:
+
+  ``bwd_start_state`` (the last face's t/u/v, the tet before it, the
+  upstream gradients and the transmittances, each ray's record slots)
+  -> ``bwd_march`` (kernel K5, csrc/tet_bwd.cu): per visited face, the
+     rebuilt transmittance, the suffix accumulators, dL/dalpha with the
+     background term and the nine colour moments, one record per face
+  -> ``reduce_tet_records``: the records summed per face, then per vertex,
+     through ``ops/reduce.py`` (``seg_sum``, no atomics).
+
 Not ported, by design: the phased lockstep march with its compaction, the
 per-view mega-table split, the entry-slot mega table with its mirror slots
 and gather index, and the (G, NS, 128) row packing. They exist to make the
 TPU's per-step row gathers cheap; a CUDA thread that finishes simply
-retires. This slice is forward only: ``render_tet_core`` raises
-``NotImplementedError`` when an input requires grad.
+retires. Nor the log-replay backward (the forward's 10-row march log, the
+one-hot run extraction on the MXU and its ``REPLAY_*`` budgets), an XLA
+device that spares the TPU the per-step gathers of a re-walk: K4 writes no
+log, and one re-walk covers every walk depth, as the CUDA original does.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..utils.config import BIN_TILE, DEFAULT_MAX_MARCH_STEPS, T_EPS, TILE_X
 from .binning import default_key_capacity
@@ -45,6 +61,7 @@ from .geometry import (
     strict_hit,
 )
 from .rays import generate_rays
+from .reduce import corner_sum, seg_sum, segment_csr
 
 # Faces per step of the dense first hit; rays per block of it (bounds the
 # [B, rays, faces] temporaries).
@@ -58,14 +75,11 @@ TET_GEO_COLS = 40  # p0, e1, e2 of the 4 face slots (36), 4 outward signs
 TET_ID_COLS = 8    # 4 face ids, 4 neighbour tet ids (-1: none)
 SHADE_COLS = 12    # 9 corner colours, alpha, log(max(1 - alpha, 1e-37)), inten
 
-_NOT_YET = ("the tet renderer's gradients come with the tet-backward slice "
-            "of the port; render without requires_grad")
-
-
-def check_no_grad(*tensors):
-    """Raise NotImplementedError when any tensor requires grad."""
-    if any(isinstance(x, torch.Tensor) and x.requires_grad for x in tensors):
-        raise NotImplementedError(_NOT_YET)
+REC_COLS = 10  # K5 record values: 9 colour moments (vertex-major), dL/dalpha
+# rows of the backward march's per-ray inputs (``bwd_start_state``)
+RAY_I_ROWS = 4   # start face, start tet, first face, record count
+RAY_F_ROWS = 11  # t, u, v, log T before the start face, dL/dC rgb, dL/dD,
+#                  bg . dL/dC + dL/dD, final T, final prev T
 
 
 # =============================================================================
@@ -304,20 +318,47 @@ def fwd_march(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_ids,
 fwd_march.launches = 0
 
 
-def _walk(g, ids, cf, o, d):
+def _moller_trumbore(p0, e1, e2, o, d):
+    """Moller-Trumbore of rays (origin ``o``, direction ``d``) against
+    triangles (corner ``p0``, edges ``e1``, ``e2``), each a 3-list of [L]:
+    (t, u, v, denom != 0), the kernels' arithmetic in their order."""
+    dx, dy, dz = d
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
+    tvx, tvy, tvz = o[0] - p0[0], o[1] - p0[1], o[2] - p0[2]
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    denom = pvx * e1x + pvy * e1y + pvz * e1z
+    nd = denom != 0.0
+    inv = torch.reciprocal(torch.where(nd, denom, 1.0))
+    t = (qvx * e2x + qvy * e2y + qvz * e2z) * inv
+    u = (pvx * tvx + pvy * tvy + pvz * tvz) * inv
+    v = (qvx * dx + qvy * dy + qvz * dz) * inv
+    return t, u, v, nd
+
+
+def _walk(g, ids, cf, o, d, direction: int = 1):
     """One connectivity step for [L] rays: their tet's rows ``g`` [L, 40]
     and ``ids`` [L, 8], current face ``cf`` [L], origin ``o`` and direction
-    ``d`` (3-lists of [L]). Returns (err, next face, next tet, t, u, v),
-    the kernel's per-slot arithmetic in its order."""
+    ``d`` (3-lists of [L]). ``direction`` +1 walks forward (the exit face's
+    outward normal has a positive dot with the ray, the entry face's a
+    negative one), -1 backward (both signs flipped). Returns (err, next
+    face, next tet, t, u, v), the kernels' per-slot arithmetic in their
+    order (csrc/tet_walk.cuh)."""
     dx, dy, dz = d
     L = cf.shape[0]
     n_other = torch.zeros(L, dtype=torch.int32, device=cf.device)
     n_exit = torch.zeros_like(n_other)
     d_entry = torch.zeros(L, dtype=torch.float32, device=cf.device)
     for j in range(4):
-        p0x, p0y, p0z = g[:, 9 * j], g[:, 9 * j + 1], g[:, 9 * j + 2]
-        e1x, e1y, e1z = g[:, 9 * j + 3], g[:, 9 * j + 4], g[:, 9 * j + 5]
-        e2x, e2y, e2z = g[:, 9 * j + 6], g[:, 9 * j + 7], g[:, 9 * j + 8]
+        p0 = [g[:, 9 * j + k] for k in range(3)]
+        e1 = [g[:, 9 * j + 3 + k] for k in range(3)]
+        e2x, e2y, e2z = e2 = [g[:, 9 * j + 6 + k] for k in range(3)]
+        e1x, e1y, e1z = e1
         sgn = g[:, 36 + j]
         tfj, nbj = ids[:, j], ids[:, 4 + j]
 
@@ -328,25 +369,14 @@ def _walk(g, ids, cf, o, d):
         norm = torch.maximum(norm, torch.full_like(norm, 1e-4))
         outd = sgn * ((nx / norm) * dx + (ny / norm) * dy + (nz / norm) * dz)
 
-        tvx, tvy, tvz = o[0] - p0x, o[1] - p0y, o[2] - p0z
-        pvx = dy * e2z - dz * e2y
-        pvy = dz * e2x - dx * e2z
-        pvz = dx * e2y - dy * e2x
-        qvx = tvy * e1z - tvz * e1y
-        qvy = tvz * e1x - tvx * e1z
-        qvz = tvx * e1y - tvy * e1x
-        denom = pvx * e1x + pvy * e1y + pvz * e1z
-        nd = denom != 0.0
-        inv = torch.reciprocal(torch.where(nd, denom, 1.0))
-        t = (qvx * e2x + qvy * e2y + qvz * e2z) * inv
-        u = (pvx * tvx + pvy * tvy + pvz * tvz) * inv
-        v = (qvx * dx + qvy * dy + qvz * dz) * inv
+        t, u, v, nd = _moller_trumbore(p0, e1, e2, o, d)
         hit = nd & (t >= 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
 
         is_entry = tfj == cf
         n_other = n_other + (~is_entry).to(torch.int32)
         d_entry = d_entry + torch.where(is_entry, outd, 0.0)
-        ex = ~is_entry & hit & (outd > 0.0)
+        dir_ok = outd > 0.0 if direction > 0 else outd < 0.0
+        ex = ~is_entry & hit & dir_ok
         n_exit = n_exit + ex.to(torch.int32)
         if j == 0:
             nt_, nu_, nv_, nface, ntet = t, u, v, tfj, nbj
@@ -356,7 +386,8 @@ def _walk(g, ids, cf, o, d):
             nv_ = torch.where(ex, v, nv_)
             nface = torch.where(ex, tfj, nface)
             ntet = torch.where(ex, nbj, ntet)
-    err = (n_other != 3) | (d_entry >= 0.0) | (n_exit != 1)
+    entry_bad = d_entry >= 0.0 if direction > 0 else d_entry <= 0.0
+    err = (n_other != 3) | entry_bad | (n_exit != 1)
     return err, nface, ntet, nt_, nu_, nv_
 
 
@@ -440,8 +471,10 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
     active [B, H, W] bool, saved): ``saved`` holds the per-ray state a
     backward needs -- first_face, last_face, last_tet, n_contrib [B, N]
     int32, final_log_T, final_prev_log_T [B, N] f32, is_active [B, N] bool
-    -- and the first hit's aux (fh_overflow, fh_num_rendered, fh_walked;
-    False, -1, -1 on the dense path)."""
+    -- the march's inputs that the backward's re-walk reads again (ray_d
+    [B*N, 3], cam_o [B, 3], zw [B*N, 4], march: the ``march_tables``) and
+    the first hit's aux (fh_overflow, fh_num_rendered, fh_walked; False,
+    -1, -1 on the dense path)."""
     from .tet_first_hit import first_intersection_binned
 
     B = mv_t.shape[0]
@@ -502,11 +535,327 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
         final_prev_log_T=shape2(out_f[5]),
         n_contrib=shape2(out_i[2]),
         is_active=shape2(act),
+        ray_d=rd_flat,
+        cam_o=cam_o,
+        zw=zw,
+        march=march,
         fh_overflow=fh_aux[0],
         fh_num_rendered=fh_aux[1],
         fh_walked=fh_aux[2],
     )
     return color.contiguous(), depth, act.reshape(B, height, width), saved
+
+
+# =============================================================================
+# The backward march (kernel K5)
+# =============================================================================
+
+def bwd_start_state(saved, face_tets, dL_dcolor, dL_ddepth, bg):
+    """Each ray's start state for the backward march, from the forward's
+    ``saved`` and the upstream gradients dL/dcolor [B, 3, H, W] and
+    dL/ddepth [B, 1, H, W].
+
+    A ray re-walks from its last face, inside the tet before that face (the
+    first entry of the face's ``face_tets`` that is not the forward's last
+    tet), with t/u/v from Moller-Trumbore on the face. A ray that is
+    inactive or blended nothing gets no records; every other ray gets
+    ``n_contrib`` slots, at the exclusive sum of the counts before it.
+    Returns (ray_i [4, M] int32: start face, start tet, first face, record
+    count; ray_f [11, M] f32: t, u, v, the log T before the start face,
+    dL/dC rgb, dL/dD, bg . dL/dC + dL/dD, final T, final prev T; off [M]
+    int64, the first slot of each ray; the number of records)."""
+    B, N = saved["last_face"].shape
+    M = B * N
+    dev = bg.device
+    lf = saved["last_face"].reshape(M)
+    lfs = lf.long().clamp_min(0)
+    g = saved["march"]["geo"][lfs]
+    o = saved["cam_o"][torch.arange(M, device=dev) // N]
+    d = saved["ray_d"]
+    t0, u0, v0, _nd = _moller_trumbore(
+        [g[:, k] for k in range(3)], [g[:, 3 + k] for k in range(3)],
+        [g[:, 6 + k] for k in range(3)], [o[:, k] for k in range(3)],
+        [d[:, k] for k in range(3)])
+    ftc = face_tets[lfs]
+    start_tet = torch.where(ftc[:, 0] != saved["last_tet"].reshape(M),
+                            ftc[:, 0], ftc[:, 1])
+    done = ~saved["is_active"].reshape(M) | (lf == -1)
+    n_rec = torch.where(done, 0, saved["n_contrib"].reshape(M))
+    n64 = n_rec.long()
+    off = torch.cumsum(n64, 0) - n64
+    gc = [dL_dcolor[:, ch].reshape(M) for ch in range(3)]
+    gdep = dL_ddepth[:, 0].reshape(M)
+    bg_dot = bg[0] * gc[0] + bg[1] * gc[1] + bg[2] * gc[2] + gdep
+    plt = saved["final_prev_log_T"].reshape(M)
+    ray_f = torch.stack([t0, u0, v0, plt, *gc, gdep, bg_dot,
+                         torch.exp(saved["final_log_T"].reshape(M)),
+                         torch.exp(plt)])
+    ray_i = torch.stack([lf, start_tet, saved["first_face"].reshape(M),
+                         n_rec]).to(torch.int32)
+    return ray_i.contiguous(), ray_f.contiguous(), off, int(n64.sum())
+
+
+def _check_bwd_args(ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_ids,
+                    shade, N):
+    M = ray_d.shape[0]
+    B = cam_o.shape[0]
+    T = tet_geo.shape[0]
+    want = ((ray_d, torch.float32, (M, 3)), (cam_o, torch.float32, (B, 3)),
+            (zw, torch.float32, (M, 4)),
+            (ray_i, torch.int32, (RAY_I_ROWS, M)),
+            (ray_f, torch.float32, (RAY_F_ROWS, M)),
+            (off, torch.int64, (M,)),
+            (tet_geo, torch.float32, (T, TET_GEO_COLS)),
+            (tet_ids, torch.int32, (T, TET_ID_COLS)),
+            (shade, torch.float32, (shade.shape[0], SHADE_COLS)))
+    for t, dtype, shape in want:
+        if t.dtype != dtype:
+            raise TypeError(f"bwd_march: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"bwd_march: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != ray_d.device:
+            raise ValueError("bwd_march: all tensors must share a device")
+    if M != B * N or shade.shape[0] % B:
+        raise ValueError(f"bwd_march: {M} rays for {B} views of {N}, shade "
+                         f"rows {shade.shape[0]}")
+
+
+def bwd_march(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int, tet_geo,
+              tet_ids, shade, N: int):
+    """Re-walk every ray from its last face back to its first (kernel K5)
+    and write one gradient record per visited face.
+
+    ray_d [M, 3], cam_o [B, 3], zw [M, 4] as for ``fwd_march``; ray_i,
+    ray_f, off and ``n_records`` from ``bwd_start_state``; the tables of
+    ``march_tables``. Returns (keys [R] int32: the face of each record, F
+    for a slot the re-walk did not fill; rec [R, 10] f32: the nine colour
+    moments, vertex-major, and dL/dalpha; bad [M] uint8: 1 where the
+    re-walk did not retrace the forward, that is, it broke, left the mesh,
+    or did not meet the first face at exactly the ray's last slot). The
+    number of such rays of the last call is ``bwd_march.mismatches``, a
+    0-d tensor on the call's device.
+
+    On CUDA tensors this launches the kernel of csrc/tet_bwd.cu (and raises
+    if it cannot); on CPU tensors it runs ``bwd_march_plain``."""
+    args = (ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_ids, shade)
+    _check_bwd_args(*args, N)
+    if ray_d.device.type == "cpu":
+        out = bwd_march_plain(*args[:6], n_records, *args[6:], N)
+        bwd_march.mismatches = out[2].sum()
+        return out
+    if ray_d.device.type != "cuda":
+        raise ValueError(f"bwd_march: unsupported device {ray_d.device}")
+    from ..kernels import load
+
+    lib = load("tet_bwd")
+    tensors = [x.contiguous() for x in args]
+    if tensors[2].data_ptr() % 16:
+        tensors[2] = tensors[2].clone()  # the kernel reads zw as float4
+    M = ray_d.shape[0]
+    F = shade.shape[0] // cam_o.shape[0]
+    dev = ray_d.device
+    keys = torch.empty((n_records,), dtype=torch.int32, device=dev)
+    rec = torch.empty((n_records, REC_COLS), dtype=torch.float32, device=dev)
+    bad = torch.empty((M,), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tet_bwd_march(
+            *[ctypes.c_void_p(t.data_ptr()) for t in tensors + [keys, rec,
+                                                                 bad]],
+            M, N, F, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"tet_bwd_march launch failed: CUDA error {err}")
+    bwd_march.launches += 1
+    bwd_march.mismatches = bad.sum()
+    return keys, rec, bad
+
+
+bwd_march.launches = 0
+bwd_march.mismatches = None
+
+
+def bwd_march_plain(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int,
+                    tet_geo, tet_ids, shade, N: int):
+    """Plain torch version of ``bwd_march``: the same inputs, outputs and
+    per-ray f32 arithmetic, vectorised over the rays that are still walking
+    and sequential over the visits."""
+    dev = ray_d.device
+    M = ray_d.shape[0]
+    F = shade.shape[0] // cam_o.shape[0]
+    view = torch.arange(M, device=dev) // N
+    keys = torch.full((n_records,), F, dtype=torch.int32, device=dev)
+    rec = torch.zeros((n_records, REC_COLS), dtype=torch.float32, device=dev)
+    bad = (ray_i[3] > 0).to(torch.uint8)
+    cf, ct = ray_i[0].clone(), ray_i[1].clone()
+    first_face, n_rec = ray_i[2], ray_i[3]
+    t, u, v, plt = (ray_f[r].clone() for r in range(4))
+    gc = [ray_f[r] for r in range(4, 8)]  # dL/dC rgb, dL/dD
+    bgd, fT, fpT = ray_f[8], ray_f[9], ray_f[10]
+    la = torch.zeros(M, dtype=torch.float32, device=dev)
+    last = [torch.zeros_like(la) for _ in range(4)]  # colour rgb, depth
+    acc = [torch.zeros_like(la) for _ in range(4)]
+
+    live = torch.nonzero(n_rec > 0).squeeze(1)
+    k = 0
+    while live.numel():
+        vw, cfl, ctl = view[live], cf[live], ct[live]
+        sh = shade[vw * F + cfl.long()]
+        alpha, l1a, inten = sh[:, 9], sh[:, 10], sh[:, 11]
+        i1, i2, tl = u[live], v[live], t[live]
+        i0 = 1.0 - i1 - i2
+        col = [(i0 * sh[:, ch] + i1 * sh[:, 3 + ch] + i2 * sh[:, 6 + ch])
+               * inten for ch in range(3)]
+        z = zw[live]
+        dep = (z[:, 0] + tl * z[:, 2]) / clamp_w(z[:, 1] + tl * z[:, 3])
+        pl = plt[live] if k == 0 else plt[live] - l1a
+        plt[live] = pl
+        prev_T = torch.exp(pl)
+        lal = la[live]
+        acc_new = [lal * last[j][live] + (1.0 - lal) * acc[j][live]
+                   for j in range(4)]
+        g = [x[live] for x in gc]
+        dL = ((col[0] - acc_new[0]) * g[0] + (col[1] - acc_new[1]) * g[1]
+              + (col[2] - acc_new[2]) * g[2]
+              + (dep - acc_new[3]) * g[3]) * prev_T
+        bg_coef = torch.where(
+            alpha == 1.0, -fpT[live],
+            -fT[live] / torch.clamp_min(1.0 - alpha, 1e-37))
+        dL = dL + bg_coef * bgd[live]
+        wmask = inten * prev_T * alpha
+        vals = [wmask * b * g[ch] for b in (i0, i1, i2) for ch in range(3)]
+        slot = off[live] + k
+        rec[slot] = torch.stack(vals + [dL], dim=1)
+        keys[slot] = cfl
+        k += 1
+        la[live] = alpha
+        for j, x in enumerate(col + [dep]):
+            last[j][live] = x
+            acc[j][live] = acc_new[j]
+
+        # stop at the first face or past the mesh, else walk back
+        at_first = cfl == first_face[live]
+        done = live[at_first]
+        bad[done] = (n_rec[done] != k).to(torch.uint8)
+        go = ~at_first & (ctl != -1) & (n_rec[live] > k)
+        live, ctl, cfl, vw = live[go], ctl[go], cfl[go], vw[go]
+        gt, ids = tet_geo[ctl.long()], tet_ids[ctl.long()]
+        o = [cam_o[vw, j] for j in range(3)]
+        d = [ray_d[live, j] for j in range(3)]
+        err, nf, nt, t2, u2, v2 = _walk(gt, ids, cfl, o, d, direction=-1)
+        live = live[~err]
+        ok = ~err
+        cf[live], ct[live] = nf[ok], nt[ok]
+        t[live], u[live], v[live] = t2[ok], u2[ok], v2[ok]
+    return keys, rec, bad
+
+
+def reduce_tet_records(keys, rec, faces, n_verts: int):
+    """K5's records -> (g_vcolor [P, 3], g_fopacity [F]): the records summed
+    per face in slot order (the absorber key F is dropped), then the nine
+    colour moments of each face summed per vertex, both by ``seg_sum``."""
+    F = faces.shape[0]
+    face_acc = seg_sum(rec, segment_csr(keys, F + 1))[:F]
+    g_vcolor = corner_sum(faces, n_verts,
+                          face_acc[:, :9].reshape(F * 3, 3))
+    return g_vcolor, face_acc[:, 9].contiguous()
+
+
+def render_tet_backward(saved, faces, face_tets, bg, n_verts: int,
+                        dL_dcolor, dL_ddepth):
+    """The gradients of ``verts_color`` [P, 3] and ``faces_opacity`` [F]
+    from the forward's ``saved`` and the upstream gradients."""
+    ray_i, ray_f, off, n_records = bwd_start_state(saved, face_tets,
+                                                   dL_dcolor, dL_ddepth, bg)
+    m = saved["march"]
+    keys, rec, _bad = bwd_march(saved["ray_d"], saved["cam_o"], saved["zw"],
+                                ray_i, ray_f, off, n_records, m["tet_geo"],
+                                m["tet_ids"], m["shade"],
+                                saved["last_face"].shape[1])
+    return reduce_tet_records(keys, rec, faces, n_verts)
+
+
+# what the backward reads of the forward's ``saved``
+_BWD_SAVED = ("first_face", "last_face", "last_tet", "n_contrib",
+              "final_log_T", "final_prev_log_T", "is_active", "ray_d",
+              "cam_o", "zw", "march")
+# the float inputs of _RenderTet that get zero gradients
+_ZERO_GRAD_INPUTS = (0, 4, 5, 6, 7, 8, 12)
+
+
+class _RenderTet(torch.autograd.Function):
+    """The tet renderer as an autograd Function. The forward keeps the
+    per-ray state, the rays and the march tables, so the backward neither
+    casts rays nor rebuilds tables; the backward runs K5 and the reduce.
+    Gradients for verts_color and faces_opacity; zeros for the other float
+    inputs (verts, the four matrices, faces_intense, bg), as the reference
+    renderer gives; None for the integer inputs and the settings."""
+
+    @staticmethod
+    def forward(ctx, verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+                inv_mv_t, inv_proj_t, faces_intense, tets, face_tets,
+                tet_faces, bg, height, width, seed, max_steps, kcap,
+                view_offset):
+        inputs = (verts, faces, verts_color, faces_opacity, mv_t, proj_t,
+                  inv_mv_t, inv_proj_t, faces_intense, tets, face_tets,
+                  tet_faces, bg)
+        color, depth, active, saved = render_tet_forward(
+            *inputs, height, width, seed, max_steps, kcap, view_offset)
+        ctx.bwd_saved = {k: saved[k] for k in _BWD_SAVED}
+        ctx.save_for_backward(faces, face_tets, bg)
+        ctx.n_verts = verts.shape[0]
+        ctx.zero_like = {i: (inputs[i].shape, inputs[i].device)
+                         for i in _ZERO_GRAD_INPUTS}
+        aux = (saved["fh_overflow"], saved["fh_num_rendered"])
+        ctx.mark_non_differentiable(active, *aux)
+        return color, depth, active, *aux
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dL_dcolor, dL_ddepth, *_nondiff):
+        faces, face_tets, bg = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grads = [None] * 19
+        if need[2] or need[3]:
+            g_vc, g_fo = render_tet_backward(ctx.bwd_saved, faces, face_tets,
+                                             bg, ctx.n_verts, dL_dcolor,
+                                             dL_ddepth)
+            grads[2], grads[3] = g_vc, g_fo
+        for i, (shape, dev) in ctx.zero_like.items():
+            if need[i]:
+                grads[i] = torch.zeros(shape, dtype=torch.float32,
+                                       device=dev)
+        return tuple(grads)
+
+
+class _EmptyFill(torch.autograd.Function):
+    """The image of empty geometry: every pixel the background with depth
+    1, inactive. ``bg`` gets the fill's gradient and every other input
+    zeros, as ``jax.grad`` gives for inputs the output does not read."""
+
+    @staticmethod
+    def forward(ctx, B, height, width, bg, *inputs):
+        ctx.like = [(x.shape, x.device) for x in inputs]
+        dev = bg.device
+        color = bg.reshape(1, 3, 1, 1).expand(B, 3, height, width)
+        active = torch.zeros((B, height, width), dtype=torch.bool,
+                             device=dev)
+        ctx.mark_non_differentiable(active)
+        return (color.contiguous(),
+                torch.ones((B, 1, height, width), dtype=torch.float32,
+                           device=dev), active)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dL_dcolor, _dL_ddepth, _dL_dactive):
+        return (None, None, None, dL_dcolor.sum(dim=(0, 2, 3))) + tuple(
+            torch.zeros(s, dtype=torch.float32, device=d) for s, d in ctx.like)
+
+
+def render_tet_empty(B: int, height: int, width: int, bg, *inputs):
+    """(color, depth, active) of a scene with no vertices, faces or tets,
+    differentiable in ``bg`` and, with zero gradients, in ``inputs``."""
+    return _EmptyFill.apply(B, height, width, bg, *inputs)
 
 
 def render_tet_core(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
@@ -523,15 +872,15 @@ def render_tet_core(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
     jitters the rays (keyed per global view: ``view_offset`` is the index
     of view 0). Returns (color [B, 3, H, W], depth [B, 1, H, W], active
     [B, H, W] bool) and, with ``with_aux``, ``(overflow, num_rendered)`` of
-    the binned first hit (``(False, -1)`` on the dense path). Forward only:
-    raises NotImplementedError when an input requires grad."""
-    check_no_grad(verts, verts_color, faces_opacity, mv_t, proj_t, inv_mv_t,
-                  inv_proj_t, faces_intense, bg)
-    color, depth, active, saved = render_tet_forward(
+    the binned first hit (``(False, -1)`` on the dense path).
+
+    Differentiable in verts_color and faces_opacity (zeros for the other
+    float inputs) when any input requires grad; otherwise autograd records
+    nothing and the forward's residuals are freed on return."""
+    color, depth, active, overflow, num_rendered = _RenderTet.apply(
         verts, faces, verts_color, faces_opacity, mv_t, proj_t, inv_mv_t,
         inv_proj_t, faces_intense, tets, face_tets, tet_faces, bg, height,
         width, seed, max_steps, kcap, view_offset)
     if with_aux:
-        return color, depth, active, (saved["fh_overflow"],
-                                      saved["fh_num_rendered"])
+        return color, depth, active, (overflow, num_rendered)
     return color, depth, active

@@ -55,10 +55,16 @@ r = p.TriRenderer(p.TriRenderSettings(40, 40, np.zeros(3, np.float32)),
 c, d = r(v, f, vc, fo, mv, proj, vd, fi)
 assert c.shape == (1, 3, 40, 40) and bool((d < 1).any())
 from dmesh_renderer_tpu_torch.utils.scenes import tet_scene
+import torch
 *tet_args, bg = tet_scene(3, 1, 32, 32)
+tet_args = [torch.from_numpy(x) for x in tet_args]
+for i in (2, 3):
+    tet_args[i].requires_grad_(True)
 c, d, a = p.TetRenderer(p.TetRenderSettings(32, 32, bg), device="cpu")(
     *tet_args)
 assert c.shape == (1, 3, 32, 32) and bool(a.any())
+(c.sum() + d.sum()).backward()
+assert bool(tet_args[2].grad.any() and tet_args[3].grad.any())
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("OK")

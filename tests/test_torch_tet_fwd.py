@@ -428,19 +428,25 @@ def test_empty_geometry_fill(empty):
     assert (bool(ovf), int(n)) == (False, 0)
 
 
-def test_requires_grad_raises():
+def test_requires_grad_gives_gradients():
+    """Inputs that require grad no longer raise: ``TetRenderer`` and
+    ``render_tet_core`` return gradients for ``verts_color`` and
+    ``faces_opacity`` (their values: ``tests/test_torch_tet_bwd.py``)."""
     sc = spec_scene()[0]
     u = list(user_inputs(sc))
     for i in (2, 3):
         v = list(u)
         v[i] = torch.from_numpy(u[i]).requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="tet-backward"):
-            TetRenderer(TetRenderSettings(8, 8, sc[10]), device="cpu")(*v)
+        c, d, _a = TetRenderer(TetRenderSettings(8, 8, sc[10]),
+                               device="cpu")(*v)
+        (c.sum() + d.sum()).backward()
+        assert v[i].grad.shape == v[i].shape and bool(v[i].grad.any())
     t = list(tet_args_from_numpy(*sc[:6], np.linalg.inv(sc[4]),
                                  np.linalg.inv(sc[5]), *sc[6:], device="cpu"))
     t[3] = t[3].requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        pt.render_tet_core(*t, 8, 8, 0)
+    c, _d, _a = pt.render_tet_core(*t, 8, 8, 0)
+    c.sum().backward()
+    assert bool(torch.isfinite(t[3].grad).all() and t[3].grad.any())
 
 
 def test_cuda_without_card_raises():
