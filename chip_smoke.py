@@ -65,7 +65,29 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 18. the tet backward's edge cases: the card's gradients against the port's
     on the CPU at the small tet scene, zero gradients of empty geometry,
     and B=2 at the headline grid with gradients;
-19. print one JSON line of per-kernel numbers, and as the last line
+19. drive the experiment tools' main path, every experiment of
+    ``tools.exp_round3`` and ``tools.proto_march_kernel`` on the card,
+    with the launch counts set to 0 just before and read just after (each
+    of T1-T4 launched), and print each experiment's answers on one line;
+    their timer (CUDA events, one warm-up call, the least of 3 rounds of
+    the mean of 8 calls) gives T1-T4's times;
+20. hold the experiment kernels against their plain versions on the card at
+    full size, on the tools' inputs, bit for bit: T1 (``take_rows``) at 8
+    and 5,000 rows of 128 lookups from tables of 8 to 48,000 rows, beside
+    ``torch.gather``; T2 (``roll_merge``) on the [5000, 12, 128] buffer;
+    T3's two entries (``mega_step``, ``two_table_step``) at 640,000 rays of
+    the tet headline's tables, and against each other; T4 (``proto_step``)
+    at 640,000 rays, step 1 and the 8-step chain on the tool's random
+    tables, and step 1 and a 2-step chain on the tet headline's mesh, where
+    rays advance; print the largest difference, each kernel's device time
+    under the profiler, the plain versions' times with the tools' timer,
+    and the bound from the run's counts;
+21. ``utils.diagnostics`` at the headlines: ``tri_render_stats`` (770,003
+    pairs, no overflow) and ``tet_health`` (577,334 active pixels);
+22. a ``diagnostics.trace`` of one tet and one tri training frame, each
+    timed by a ``StageTimer``: the device busy share, the device time the
+    trace holds over the frame's time;
+23. print one JSON line of per-kernel numbers, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -77,6 +99,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -151,6 +174,25 @@ K5_REC_BYTES = 4 + 10 * 4
 # the card's tet gradients against the port's on the CPU, rel Linf: the two
 # devices' exp and log differ in the last bits (hazard g)
 TET_CARD_CPU_RTOL = 1e-5
+# The experiment kernels' shapes (the JAX tools' full sizes): T1's table
+# rows and lookup rows (8, the TPU's; 5,000 rows of 128, the march width),
+# the rays of T2-T4 and T4's chained steps
+PROBE_TABLE_ROWS = (8, 32, 64, 512, 48_000)
+PROBE_LOOKUP_ROWS = (8, 5_000)
+PROBE_RAYS = 640_000
+TET_HEADLINE_ACTIVE = 577_334  # active pixels of the tet headline on the card
+# f32 operations per ray: T3 (shade select 4 x 12 multiply-adds, 4
+# compares, colour 21, weight 1, the walk step, outputs 9) and T4 (the walk
+# step, colour 21, weight 1, depth 6, log T 1, exp 1, compare 1,
+# accumulators 8, counter 1)
+OPS_T3_RAY = 48 + 4 + 21 + 1 + OPS_PER_WALK + 9
+OPS_T4_RAY = OPS_PER_WALK + 21 + 1 + 6 + 1 + 1 + 1 + 8 + 1
+# bytes per ray that the kernels read and write: T3 ct 4, consts rows 0-5,
+# state rows 1-16, 17 rows out; T4 ct and cf 4 each, consts rows 0-9, state
+# rows 0-10 and 12-15, 16 rows out
+T3_RAY_BYTES = 4 + 6 * 4 + 16 * 4 + 17 * 4
+T4_RAY_BYTES = 4 + 4 + 10 * 4 + 15 * 4 + 16 * 4
+TRACE_DIR = Path(__file__).resolve().parent / ".traces"
 
 
 def log(*a):
@@ -1052,6 +1094,348 @@ def tet_train_phases(dev, head):
     return k5, info
 
 
+def profiled_device_ms(fn, kernel, reps=10):
+    """The mean device time (ms) of the kernel whose name holds ``kernel``
+    over ``reps`` calls of ``fn()`` under the profiler: the kernel's own
+    time, without the host's launch cost that events around back-to-back
+    calls also see."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmesh_renderer_tpu_torch.utils import diagnostics as dg
+
+    fn()
+    torch.cuda.synchronize()
+    # The profiler has been seen to return a window without its device
+    # records (none of the kernel's launches); such a window is taken again,
+    # at most twice, and said.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = dg.device_time_by_name(prof)
+        hits = [(c, ms) for n, (c, ms) in by_name.items() if kernel in n]
+        if len(hits) == 1 and hits[0][0] == reps:
+            return hits[0][1] / reps
+        log(f"profiled {kernel}, window {attempt + 1}: {hits} (want {reps} "
+            f"launches of one kernel); {len(by_name)} device names: "
+            f"{[n[:60] for n in list(by_name)[:4]]}")
+    raise AssertionError(f"profiled {kernel}: no window held its {reps} "
+                         "launches")
+
+
+def _jsonable(x):
+    if isinstance(x, dict):
+        return {(k if isinstance(k, str) else str(k)): _jsonable(v)
+                for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    return x
+
+
+def tools_main_path(dev):
+    """Phase 19: the experiment tools on the card, counts set to 0 just
+    before and read just after. Returns the experiments' answers (which
+    hold T1-T4's times) and the launch counts."""
+    from dmesh_renderer_tpu_torch.tools import exp_round3 as ex
+    from dmesh_renderer_tpu_torch.tools import proto_march_kernel as pm
+
+    probes = {"take_rows": ex.take_rows, "roll_merge": ex.roll_merge,
+              "mega_step": ex.mega_step, "two_table_step": ex.two_table_step,
+              "proto_step": pm.proto_step}
+    for c in probes.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    answers = ex.main([*ex.EXPERIMENTS, "--device", "cuda"])
+    answers["proto_march_kernel"] = pm.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in probes.items()}
+    for k, n in launches.items():
+        check(n >= 1, f"the tools' main path did not launch {k}")
+    log(f"tools' main path: launches {launches} ({wall:.1f} s)")
+    for name, res in answers.items():
+        log(f"answers {name}: {json.dumps(_jsonable(res))}")
+    return answers, launches
+
+
+def _max_diff(pairs):
+    """The largest |got - want| over (got, want) pairs of tensors."""
+    return max(float((g.double() - w.double()).abs().max()) for g, w in pairs)
+
+
+def probe_kernel_phases(dev, answers, launches):
+    """Phase 20: T1-T4 against their plain versions at full size, on the
+    inputs the tools drew in phase 19, with the largest difference; their
+    times from the tools' answers, each kernel's device time under the
+    profiler, the plain versions' times with the tools' timer, and the
+    bounds from this run's bytes and operations. Returns their JSON
+    entries."""
+    from dmesh_renderer_tpu_torch.tools import exp_round3 as ex
+    from dmesh_renderer_tpu_torch.tools import proto_march_kernel as pm
+
+    measure = ex._timer(dev)
+
+    # ---- T1: every table size at the TPU's 8 rows and the march width,
+    # e2's draws
+    rng = np.random.RandomState(0)
+    lane = torch.arange(128, device=dev)
+    t1, t1_pairs = {}, []
+    for S in PROBE_TABLE_ROWS:
+        tab = torch.from_numpy(rng.rand(S, 128).astype(np.float32)).to(dev)
+        for R in PROBE_LOOKUP_ROWS:
+            idx = torch.from_numpy(
+                rng.randint(0, S, (R, 128)).astype(np.int32)).to(dev)
+            idx64 = idx.long()
+            got = ex.take_rows(tab, idx)
+            torch.cuda.synchronize()
+            want = ex.take_rows_plain(tab, idx)
+            t1_pairs.append((got, want))
+            check(torch.equal(got, want), f"T1 S={S} R={R} differs from plain")
+            check(torch.equal(got, torch.gather(tab, 0, idx64)),
+                  f"T1 S={S} R={R} differs from torch.gather")
+            # the table elements the lookups touch, read once
+            touched = int(torch.unique(idx64 * 128 + lane).numel())
+            b_ms, b_by, _o, _b = bound(2 * R * 128,
+                                       2 * R * 128 * 4 + touched * 4)
+            ms, lib_ms = answers["e2"][(S, R)]
+            t1[(S, R)] = dict(
+                ms=ms,
+                device_ms=profiled_device_ms(
+                    lambda: ex.take_rows(tab, idx), "take_rows_kernel"),
+                plain_ms=measure(lambda: ex.take_rows_plain(tab, idx)),
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                touched=touched)
+            r = t1[(S, R)]
+            route = "shared memory" if S <= 96 else "L2"
+            log(f"T1 take_rows S={S} R={R} ({route}): bit-equal to plain "
+                f"and torch.gather; {r['ms']:.4f} ms per call, device "
+                f"{r['device_ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f}, torch.gather "
+                f"{r['library_ms']:.4f}; {touched} table elements touched; "
+                f"bound {b_ms:.5f} ms by {b_by}")
+    t1_err = _max_diff(t1_pairs)
+
+    # ---- T2: the [5000, 12, 128] buffer, keys in runs of 16
+    buf = ex.e3_buffer(PROBE_RAYS).to(dev)
+    got = ex.roll_merge(buf)
+    torch.cuda.synchronize()
+    want = ex.roll_merge_plain(buf)
+    t2_err = _max_diff([(got, want)])
+    check(torch.equal(got, want), f"T2 differs from plain (max abs {t2_err})")
+    G = buf.shape[0]
+    t2_bound, t2_by, _o, _b = bound(G * 128 * 7 * (11 * 2 + 2),
+                                    2 * buf.numel() * 4)
+    t2_ms = answers["e3"]["ms"]
+    t2_dev = profiled_device_ms(lambda: ex.roll_merge(buf),
+                                "roll_merge_kernel")
+    t2_plain = measure(lambda: ex.roll_merge_plain(buf))
+    log(f"T2 roll_merge [{G}, 12, 128]: bit-equal to plain; {t2_ms:.4f} ms "
+        f"per call, device {t2_dev:.4f} ms, plain {t2_plain:.4f}; "
+        f"{2 * buf.numel() * 4} bytes; bound "
+        f"{t2_bound:.5f} ms by {t2_by}")
+
+    # ---- T3: both entries at the tet headline's tables, 640,000 rays
+    march, mega, ct, consts, state = ex.e5_inputs(dev, 20, PROBE_RAYS)
+    tabs = (march["tet_geo"], march["tet_ids"], march["shade"])
+    a = ex.mega_step(mega, ct, consts, state)
+    b = ex.two_table_step(*tabs, ct, consts, state)
+    torch.cuda.synchronize()
+    want = ex.mega_step_plain(mega, ct, consts, state)
+    t3_err = _max_diff([(a, want), (b, want)])
+    check(torch.equal(a, want), f"T3 mega_step differs from plain "
+          f"(max abs {t3_err})")
+    check(torch.equal(b, want), "T3 two_table_step differs from plain")
+    check(torch.equal(ex.two_table_step_plain(*tabs, ct, consts, state),
+                      want), "T3's plain entries differ")
+    ray_bytes = PROBE_RAYS * T3_RAY_BYTES
+    used_tets = torch.unique(ct.long())
+    used_faces = torch.unique(march["tet_ids"][used_tets, :4].long()
+                              .clamp_min(0))
+    mega_bytes = ray_bytes + used_tets.numel() * 96 * 4
+    two_bytes = (ray_bytes + used_tets.numel() * 48 * 4
+                 + used_faces.numel() * 12 * 4)
+    t3_bound, t3_by, _o, _b = bound(PROBE_RAYS * OPS_T3_RAY, mega_bytes)
+    t3b_bound, t3b_by, _o, _b = bound(PROBE_RAYS * OPS_T3_RAY, two_bytes)
+    t3_ms, t3b_ms = answers["e5"]["mega_ms"], answers["e5"]["two_table_ms"]
+    t3_dev = profiled_device_ms(
+        lambda: ex.mega_step(mega, ct, consts, state), "mega_step_kernel")
+    t3b_dev = profiled_device_ms(
+        lambda: ex.two_table_step(*tabs, ct, consts, state),
+        "two_table_step_kernel")
+    t3_plain = measure(lambda: ex.mega_step_plain(mega, ct, consts, state))
+    log(f"T3 at {PROBE_RAYS} rays, T={mega.shape[0]}: mega_step and "
+        f"two_table_step bit-equal to plain and to each other; mega "
+        f"{t3_ms:.4f} ms per call, device {t3_dev:.4f} ms (bound "
+        f"{t3_bound:.5f} by {t3_by}, {mega_bytes} bytes), two-table "
+        f"{t3b_ms:.4f} ms, device {t3b_dev:.4f} ms (bound {t3b_bound:.5f} by "
+        f"{t3b_by}, {two_bytes} bytes), plain {t3_plain:.3f} ms; "
+        f"{used_tets.numel()} tets and {used_faces.numel()} faces touched")
+
+    # ---- T4: the tool's random tables, step 1 and the 8-step chain; then
+    # the headline mesh (e5's tables and rays), where rays advance, step 1
+    # and a 2-step chain
+    t4_pairs = []
+
+    def t4_check(tabs, steps, label):
+        s1 = pm.proto_step(*tabs)
+        torch.cuda.synchronize()
+        w1 = pm.proto_step_plain(*tabs)
+        t4_pairs.append((s1, w1))
+        check(torch.equal(s1, w1), f"T4 step 1 on {label} differs from plain")
+        got = pm.chain(*tabs, steps=steps)
+        want = pm.chain(*tabs, steps=steps, step=pm.proto_step_plain)
+        t4_pairs.extend(zip(got, want))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"T4 {steps}-step chain on {label} differs from plain")
+        return s1, got[0]
+
+    ptabs = pm.random_tables(dev)
+    s1, _sc = t4_check(ptabs, pm.REPS, "the random tables")
+    _s, cf1, ct1 = pm.chain(*ptabs, steps=1)
+    n_cf, n_ct = int(torch.unique(cf1).numel()), int(torch.unique(ct1).numel())
+    n_err = int(s1[11].sum())
+    mtabs = pm.mesh_tables(dev, 20, PROBE_RAYS)
+    m1, m2 = t4_check(mtabs, 2, "the mesh")
+    # a lane advanced where it did not err and T stayed above 1e-4
+    n_adv = [int(((s[11] == 0) & (s[5] > 1e-4)).sum()) for s in (m1, m2)]
+    check(n_adv[0] > 0 and n_adv[1] > 0,
+          f"T4 on the mesh: no lane advanced ({n_adv})")
+    t4_err = _max_diff(t4_pairs)
+    ray4 = PROBE_RAYS * T4_RAY_BYTES
+    s1_bytes = (ray4 + torch.unique(ptabs[2]).numel() * 48 * 4
+                + torch.unique(ptabs[3]).numel() * 12 * 4)
+    chain_bytes = s1_bytes + (pm.REPS - 1) * (ray4 + 48 * 4 + 12 * 4)
+    t4_bound, t4_by, _o, _b = bound(PROBE_RAYS * OPS_T4_RAY, s1_bytes)
+    t4c_bound, t4c_by, _o, _b = bound(pm.REPS * PROBE_RAYS * OPS_T4_RAY,
+                                      chain_bytes)
+    pa = answers["proto_march_kernel"]
+    t4_ms, t4c_step_ms = pa["step1_ms"], pa["chain_ms_per_step"]
+    t4_dev = profiled_device_ms(lambda: pm.proto_step(*ptabs),
+                                "proto_step_kernel")
+    t4_plain = measure(lambda: pm.proto_step_plain(*ptabs))
+    log(f"T4 proto_step at {PROBE_RAYS} rays: step 1 and the {pm.REPS}-step "
+        f"chain on the random tables, step 1 and the 2-step chain on the "
+        f"mesh, bit-equal to plain; step 1 {t4_ms:.4f} ms per call, device "
+        f"{t4_dev:.4f} ms (bound {t4_bound:.5f} by {t4_by}), chain "
+        f"{t4c_step_ms:.4f} ms/step (bound {t4c_bound / pm.REPS:.5f} "
+        f"ms/step by {t4c_by}), plain step {t4_plain:.3f} ms; random "
+        f"tables: error lanes {n_err} of {PROBE_RAYS}, after step 1 {n_cf} "
+        f"distinct faces and {n_ct} distinct tets; mesh: {n_adv[0]} lanes "
+        f"advanced at step 1, {n_adv[1]} at step 2")
+
+    main_t1 = t1[(PROBE_TABLE_ROWS[-1], PROBE_LOOKUP_ROWS[-1])]
+    return [
+        {"route": "cuda", "name": "take_rows",
+         "source": "dmesh_renderer_tpu_torch/csrc/probes.cu",
+         "replaces": "tools/exp_round3.py:151",
+         "launches": launches["take_rows"], "max_abs_err": t1_err,
+         **{k: main_t1[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+         "shape": [PROBE_TABLE_ROWS[-1], PROBE_LOOKUP_ROWS[-1], 128],
+         "by_shape": {f"S={S},R={R}": v for (S, R), v in t1.items()}},
+        {"route": "cuda", "name": "roll_merge",
+         "source": "dmesh_renderer_tpu_torch/csrc/probes.cu",
+         "replaces": "tools/exp_round3.py:194",
+         "launches": launches["roll_merge"], "max_abs_err": t2_err,
+         "ms": t2_ms, "device_ms": t2_dev, "plain_ms": t2_plain,
+         "bound_ms": t2_bound,
+         "bound_by": t2_by, "library_ms": None, "shape": [G, 12, 128]},
+        {"route": "cuda", "name": "mega_step",
+         "source": "dmesh_renderer_tpu_torch/csrc/march_probe.cu",
+         "replaces": "tools/exp_round3.py:304",
+         "launches": launches["mega_step"], "max_abs_err": t3_err,
+         "ms": t3_ms, "device_ms": t3_dev, "plain_ms": t3_plain,
+         "bound_ms": t3_bound, "bound_by": t3_by, "library_ms": None,
+         "launches_two_table": launches["two_table_step"],
+         "two_table_ms": t3b_ms, "two_table_device_ms": t3b_dev,
+         "two_table_bound_ms": t3b_bound,
+         "rays": PROBE_RAYS},
+        {"route": "cuda", "name": "proto_step",
+         "source": "dmesh_renderer_tpu_torch/csrc/march_probe.cu",
+         "replaces": "tools/proto_march_kernel.py:54",
+         "launches": launches["proto_step"], "max_abs_err": t4_err,
+         "ms": t4_ms, "device_ms": t4_dev, "plain_ms": t4_plain,
+         "bound_ms": t4_bound, "bound_by": t4_by, "library_ms": None,
+         "chain_ms_per_step": t4c_step_ms,
+         "chain_bound_ms_per_step": t4c_bound / pm.REPS,
+         "error_lanes_step1": n_err, "distinct_faces_after_step1": n_cf,
+         "distinct_tets_after_step1": n_ct,
+         "mesh_lanes_advanced": n_adv},
+    ]
+
+
+def diagnostics_phases(dev, tri_fargs, tet_head):
+    """Phases 21-22: the diagnostics at the headlines, and a trace of one
+    tet and one tri training frame. Returns a dict of their numbers."""
+    import dmesh_renderer_tpu_torch as port
+    from dmesh_renderer_tpu_torch.utils import diagnostics as dg
+
+    H, W = HEADLINE["height"], HEADLINE["width"]
+    stats = dg.tri_render_stats(tri_fargs[0], tri_fargs[1], tri_fargs[4],
+                                tri_fargs[5], H, W)
+    check(stats["num_rendered"] == HEADLINE_PAIRS and not stats["overflow"],
+          f"tri_render_stats at the headline: {stats}")
+    TH, TW = TET_HEADLINE["height"], TET_HEADLINE["width"]
+    user, renderer = tet_head["user"], tet_head["renderer"]
+    _c, _d, active = renderer(*user)
+    health = dg.tet_health(active)
+    check(health["inactive_pixels"] == TH * TW - TET_HEADLINE_ACTIVE,
+          f"tet_health at the tet headline: {health}")
+    log(f"diagnostics: tri_render_stats at the headline {stats}; tet_health "
+        f"at the tet headline {health}")
+
+    tri_r = port.TriRenderer(port.TriRenderSettings(H, W, tri_fargs[10]),
+                             "cuda")
+    tri_user = tet_head["tri_user"]
+    tri_leaves = leaves_of(tri_user)
+    tet_leaves = [user[i].detach().clone().requires_grad_(True)
+                  for i in (2, 3)]
+
+    def tet_frame():
+        c, d, _a = renderer(user[0], user[1], tet_leaves[0], tet_leaves[1],
+                            *user[4:])
+        (c.sum() + d.sum()).backward()
+
+    def tri_frame():
+        lv = tri_leaves
+        c, d = tri_r(lv[0], tri_user[1], lv[1], lv[2], tri_user[4],
+                     tri_user[5], lv[3], lv[4])
+        (c.sum() + d.sum()).backward()
+
+    timer = dg.StageTimer()
+    out = {}
+    for name, frame in (("tet", tet_frame), ("tri", tri_frame)):
+        plain_frame_ms = cuda_ms(frame, 2, 5)  # without the profiler
+        with dg.trace(str(TRACE_DIR)) as prof:
+            with timer.stage(f"{name} training frame"):
+                frame()
+        busy = dg.device_busy_ms(prof)
+        by_name = dg.device_time_by_name(prof)
+        frame_ms = timer.times[f"{name} training frame"] * 1e3
+        check(busy > 0, f"the {name} trace holds no device activity")
+        n_dev = sum(c for c, _ms in by_name.values())
+        syncs = sum(1 for e in prof.events() if "Synchronize" in e.name)
+        top = [(n.replace("(anonymous namespace)::", "").split("(")[0]
+                [-48:], c, round(ms, 4))
+               for n, (c, ms) in list(by_name.items())[:6]]
+        out[name] = {"busy_ms": busy, "frame_ms_profiled": frame_ms,
+                     "frame_ms": plain_frame_ms,
+                     "busy_share": busy / plain_frame_ms,
+                     "busy_share_profiled": busy / frame_ms,
+                     "device_events": n_dev, "host_syncs": syncs,
+                     "top_device": top,
+                     "trace": Path(prof.trace_path).name}
+        log(f"trace of one {name} training frame: device busy {busy:.3f} ms "
+            f"in {n_dev} device events; the frame {plain_frame_ms:.3f} ms "
+            f"unprofiled (busy share {busy / plain_frame_ms:.3f}), "
+            f"{frame_ms:.3f} ms profiled (busy share {busy / frame_ms:.3f}); "
+            f"{syncs} host synchronisations; the largest device times "
+            f"(name, count, ms): {top}; {prof.trace_path}")
+    return {"tri_render_stats": stats, "tet_health": health, "traces": out}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1397,6 +1781,10 @@ def main() -> int:
 
     tet_kernels, tet_info, tet_head = tet_phases(dev)
     k5_entry, tet_train_info = tet_train_phases(dev, tet_head)
+    answers, probe_launches = tools_main_path(dev)
+    probe_entries = probe_kernel_phases(dev, answers, probe_launches)
+    tet_head["tri_user"] = user
+    diag = diagnostics_phases(dev, fargs, tet_head)
 
     common = {"route": "cuda"}
     log(json.dumps({"kernels": [
@@ -1433,11 +1821,13 @@ def main() -> int:
          "ms": ss_ms, "plain_ms": ss_plain_ms, "bound_ms": ss_bound,
          "bound_by": ss_by, "library_ms": ss_lib_ms,
          "shape": [N, C, F]},
-        *tet_kernels, k5_entry,
+        *tet_kernels, k5_entry, *probe_entries,
     ], "fwd_bwd_ms": fb_ms, "fwd_bwd_split_ms": fb_split,
         "fwd_bwd_peak_mib": fb_peak / 2**20,
         "forward_no_grad_after_ms": fwd_nograd_ms, "train_step_ms": step_ms,
-        "train_losses": losses, **tet_info, **tet_train_info}))
+        "train_losses": losses, **tet_info, **tet_train_info,
+        "diagnostics": diag,
+        "experiments": {k: _jsonable(v) for k, v in answers.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))
     return 0

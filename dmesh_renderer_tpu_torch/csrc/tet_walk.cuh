@@ -13,6 +13,12 @@
 // recomputed with the precompute's operation order (cross, sqrt of the sum
 // of squares, max with 1e-4, divide).
 //
+// walk_slots<kDir, Id> is the same step with the reference's fallback: it
+// always writes the selected slot's values (the last exit in slot order,
+// slot 0 when there is none), error or not, and returns the error flag. Id
+// is int for the march tables' id rows and float for rows that carry the
+// ids as exact f32 (the experiment kernels of march_probe.cu).
+//
 // Built with --fmad=false and IEEE division and square root, so that every
 // f32 operation rounds as the elementwise torch ops of the plain versions
 // (ops/tet.py::_walk) do.
@@ -36,27 +42,26 @@ __device__ __forceinline__ float clamp_w(float w) {
   return w;
 }
 
-// One connectivity step. On success writes the next face, its tet (-1 past
-// the mesh's boundary) and the hit's t, u, v, and returns false; on an
-// invariant violation returns true and writes nothing.
-template <int kDir>
-__device__ __forceinline__ bool walk_step(const float* __restrict__ g,
-                                          const int* __restrict__ ids, int cf,
-                                          float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float& t, float& u, float& v,
-                                          int& next_face, int& next_tet) {
+// One connectivity step with the reference's fallback values: writes the
+// next face, its tet (-1 past the mesh's boundary) and the hit's t, u, v of
+// the selected slot whatever the outcome, and returns true on an invariant
+// violation.
+template <int kDir, typename Id>
+__device__ __forceinline__ bool walk_slots(const float* __restrict__ g,
+                                           const Id* __restrict__ ids, Id cf,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float& t, float& u, float& v,
+                                           Id& next_face, Id& next_tet) {
   int n_other = 0, n_exit = 0;
   float d_entry = 0.0f;
-  float nt_ = 0.0f, nu_ = 0.0f, nv_ = 0.0f;
-  int nface = -1, ntet = -1;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float p0x = g[9 * j + 0], p0y = g[9 * j + 1], p0z = g[9 * j + 2];
     const float e1x = g[9 * j + 3], e1y = g[9 * j + 4], e1z = g[9 * j + 5];
     const float e2x = g[9 * j + 6], e2y = g[9 * j + 7], e2z = g[9 * j + 8];
     const float sgn = g[36 + j];
-    const int tfj = ids[j], nbj = ids[4 + j];
+    const Id tfj = ids[j], nbj = ids[4 + j];
 
     const float nx = e1y * e2z - e1z * e2y;
     const float ny = e1z * e2x - e1x * e2z;
@@ -88,15 +93,32 @@ __device__ __forceinline__ bool walk_step(const float* __restrict__ g,
     const bool ex = !is_entry && hit && dir_ok;
     n_exit += ex ? 1 : 0;
     if (j == 0 || ex) {
-      nt_ = tj;
-      nu_ = uj;
-      nv_ = vj;
-      nface = tfj;
-      ntet = nbj;
+      t = tj;
+      u = uj;
+      v = vj;
+      next_face = tfj;
+      next_tet = nbj;
     }
   }
   const bool entry_bad = kDir > 0 ? d_entry >= 0.0f : d_entry <= 0.0f;
-  if (n_other != 3 || entry_bad || n_exit != 1) return true;
+  return n_other != 3 || entry_bad || n_exit != 1;
+}
+
+// One connectivity step. On success writes the next face, its tet (-1 past
+// the mesh's boundary) and the hit's t, u, v, and returns false; on an
+// invariant violation returns true and writes nothing.
+template <int kDir>
+__device__ __forceinline__ bool walk_step(const float* __restrict__ g,
+                                          const int* __restrict__ ids, int cf,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float& t, float& u, float& v,
+                                          int& next_face, int& next_tet) {
+  float nt_ = 0.0f, nu_ = 0.0f, nv_ = 0.0f;
+  int nface = -1, ntet = -1;
+  if (walk_slots<kDir, int>(g, ids, cf, ox, oy, oz, dx, dy, dz, nt_, nu_,
+                            nv_, nface, ntet))
+    return true;
   t = nt_;
   u = nu_;
   v = nv_;

@@ -22,6 +22,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -37,6 +39,11 @@ SIGNATURES = {
     "tet_fwd": {"tet_first_hit": [_P] * 8 + [_I] * 3 + [_P],
                 "tet_fwd_march": [_P] * 11 + [_I] * 4 + [_F, _P]},
     "tet_bwd": {"tet_bwd_march": [_P] * 12 + [_I] * 3 + [_P]},
+    "probes": {"take_rows": [_P] * 3 + [_I] * 2 + [_P],
+               "roll_merge": [_P] * 2 + [_I] + [_P]},
+    "march_probe": {"mega_step": [_P] * 5 + [_I] * 2 + [_P],
+                    "two_table_step": [_P] * 7 + [_I] * 3 + [_P],
+                    "proto_step": [_P] * 7 + [_I] * 3 + [_P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -110,3 +117,18 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def launch(name: str, fn: str, tensors, scalars, device) -> None:
+    """Call the launcher ``fn`` of ``csrc/<name>.cu`` with the tensors'
+    pointers, then the scalars (as its ``SIGNATURES`` entry types them),
+    then ``device``'s current stream. Raises if the launch failed. The
+    caller keeps the tensors alive and contiguous."""
+    lib = load(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn)(
+            *[ctypes.c_void_p(t.data_ptr()) for t in tensors], *scalars,
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")

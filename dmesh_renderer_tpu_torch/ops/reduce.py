@@ -17,7 +17,6 @@ bit.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -75,23 +74,16 @@ def seg_sum(values: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
         return seg_sum_plain(values, csr)
     if values.device.type != "cuda":
         raise ValueError(f"seg_sum: unsupported device {values.device}")
-    from ..kernels import load
+    from ..kernels import launch
 
-    lib = load("tri_bwd")
     n_seg = csr.offsets.numel() - 1
     C = values.shape[1]
     vals = values.contiguous()
     order = csr.order.contiguous()
     offsets = csr.offsets.contiguous()
     out = torch.empty((n_seg, C), dtype=torch.float32, device=values.device)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.seg_sum(
-            *[ctypes.c_void_p(t.data_ptr()) for t in (vals, order, offsets,
-                                                       out)],
-            n_seg, C, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"seg_sum launch failed: CUDA error {err}")
+    launch("tri_bwd", "seg_sum", [vals, order, offsets, out], [n_seg, C],
+           values.device)
     seg_sum.launches += 1
     return out
 

@@ -43,7 +43,6 @@ log, and one re-walk covers every walk depth, as the CUDA original does.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -293,9 +292,8 @@ def fwd_march(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_ids,
         return fwd_march_plain(*args, N, max_steps)
     if ray_d.device.type != "cuda":
         raise ValueError(f"fwd_march: unsupported device {ray_d.device}")
-    from ..kernels import load
+    from ..kernels import launch
 
-    lib = load("tet_fwd")
     tensors = [x.contiguous() for x in args]
     if tensors[2].data_ptr() % 16:
         tensors[2] = tensors[2].clone()  # the kernel reads zw as float4
@@ -304,13 +302,8 @@ def fwd_march(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_ids,
     dev = ray_d.device
     out_f = torch.empty((6, M), dtype=torch.float32, device=dev)
     out_i = torch.empty((4, M), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tet_fwd_march(
-            *[ctypes.c_void_p(t.data_ptr()) for t in tensors + [out_f, out_i]],
-            M, N, F, int(max_steps), LOG_T_FLOOR, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"tet_fwd_march launch failed: CUDA error {err}")
+    launch("tet_fwd", "tet_fwd_march", tensors + [out_f, out_i],
+           [M, N, F, int(max_steps), LOG_T_FLOOR], dev)
     fwd_march.launches += 1
     return out_f, out_i
 
@@ -646,9 +639,8 @@ def bwd_march(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int, tet_geo,
         return out
     if ray_d.device.type != "cuda":
         raise ValueError(f"bwd_march: unsupported device {ray_d.device}")
-    from ..kernels import load
+    from ..kernels import launch
 
-    lib = load("tet_bwd")
     tensors = [x.contiguous() for x in args]
     if tensors[2].data_ptr() % 16:
         tensors[2] = tensors[2].clone()  # the kernel reads zw as float4
@@ -658,14 +650,8 @@ def bwd_march(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int, tet_geo,
     keys = torch.empty((n_records,), dtype=torch.int32, device=dev)
     rec = torch.empty((n_records, REC_COLS), dtype=torch.float32, device=dev)
     bad = torch.empty((M,), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tet_bwd_march(
-            *[ctypes.c_void_p(t.data_ptr()) for t in tensors + [keys, rec,
-                                                                 bad]],
-            M, N, F, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"tet_bwd_march launch failed: CUDA error {err}")
+    launch("tet_bwd", "tet_bwd_march", tensors + [keys, rec, bad], [M, N, F],
+           dev)
     bwd_march.launches += 1
     bwd_march.mismatches = bad.sum()
     return keys, rec, bad

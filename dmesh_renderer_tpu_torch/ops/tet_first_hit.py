@@ -17,7 +17,6 @@ slot-scale attribute table of the TPU kernel.
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -88,9 +87,8 @@ def first_hit(starts, ends, slot_face, table, ray_d, B: int, H: int, W: int):
         return first_hit_plain(starts, ends, slot_face, table, ray_d, B, H, W)
     if ray_d.device.type != "cuda":
         raise ValueError(f"first_hit: unsupported device {ray_d.device}")
-    from ..kernels import load
+    from ..kernels import launch
 
-    lib = load("tet_fwd")
     tensors = [x.contiguous() for x in (starts, ends, slot_face, table,
                                         ray_d)]
     if tensors[3].data_ptr() % 16:
@@ -100,14 +98,8 @@ def first_hit(starts, ends, slot_face, table, ray_d, B: int, H: int, W: int):
     tuv = torch.empty((B, 3, H, W), dtype=torch.float32, device=dev)
     face = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     walked = torch.empty((B, qy, qx), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tet_first_hit(
-            *[ctypes.c_void_p(t.data_ptr())
-              for t in tensors + [tuv, face, walked]],
-            B, H, W, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"tet_first_hit launch failed: CUDA error {err}")
+    launch("tet_fwd", "tet_first_hit", tensors + [tuv, face, walked],
+           [B, H, W], dev)
     first_hit.launches += 1
     return face, tuv[:, 0], tuv[:, 1], tuv[:, 2], walked
 

@@ -35,7 +35,6 @@ depth-sorted order of ``BinnedKeys.slot_face``.
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -143,21 +142,14 @@ def fwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d,
                                    face_i32, ray_d, B, H, W)
     if ray_d.device.type != "cuda":
         raise ValueError(f"fwd_composite: unsupported device {ray_d.device}")
-    from ..kernels import load
+    from ..kernels import launch
 
-    lib = load("tri_fwd")
     tensors = [x.contiguous() for x in (starts, ends, slot_face, face_f32,
                                         face_i32, ray_d)]
     out = torch.empty((B, 6, H, W), dtype=torch.float32, device=ray_d.device)
     nc = torch.empty((B, H, W), dtype=torch.int32, device=ray_d.device)
-    with torch.cuda.device(ray_d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tri_fwd_composite(
-            *[ctypes.c_void_p(t.data_ptr()) for t in tensors + [out, nc]],
-            B, H, W, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"tri_fwd_composite launch failed: CUDA error {err}")
+    launch("tri_fwd", "tri_fwd_composite", tensors + [out, nc], [B, H, W],
+           ray_d.device)
     fwd_composite.launches += 1
     return out[:, 0:3], out[:, 3], out[:, 4], out[:, 5], nc
 
@@ -279,22 +271,15 @@ def bwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d, T,
                                    B, H, W)
     if ray_d.device.type != "cuda":
         raise ValueError(f"bwd_composite: unsupported device {ray_d.device}")
-    from ..kernels import load
+    from ..kernels import launch
 
-    lib = load("tri_bwd")
     tensors = [x.contiguous() for x in (starts, ends, slot_face, face_f32,
                                         face_i32, ray_d, T, prevT, n_contrib,
                                         gin)]
     rec = torch.zeros((slot_face.numel(), 4, REC_COLS), dtype=torch.float32,
                       device=ray_d.device)
-    with torch.cuda.device(ray_d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.tri_bwd_composite(
-            *[ctypes.c_void_p(t.data_ptr()) for t in tensors + [rec]],
-            B, H, W, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"tri_bwd_composite launch failed: CUDA error {err}")
+    launch("tri_bwd", "tri_bwd_composite", tensors + [rec], [B, H, W],
+           ray_d.device)
     bwd_composite.launches += 1
     return rec
 

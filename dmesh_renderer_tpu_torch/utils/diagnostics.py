@@ -1,0 +1,168 @@
+"""Observability: render statistics, health counters, stage timing, tracing.
+
+A port of the JAX package's ``utils/diagnostics.py``:
+
+  * ``tri_render_stats``: the binning statistics of a tri scene (pairs
+    emitted, key-capacity overflow, per-tile list sizes, culled faces), from
+    the same ``binning.emit_and_sort`` the render runs;
+  * ``tet_health``: the active-pixel fraction per view of the tet
+    renderer's ``active`` mask (walk failures degrade pixels to inactive);
+  * ``StageTimer``: stage timing that waits for the stage's work: CUDA
+    events on the card, the host clock on the CPU;
+  * ``trace``: a ``torch.profiler`` trace (CPU and, with a card, CUDA
+    activity) written as a Chrome trace; ``device_busy_ms``, the device
+    time a trace holds, and ``device_time_by_name``, that time by kernel.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import os
+import time
+import torch
+
+from ..api import resolve_device
+from ..ops.binning import default_key_capacity, emit_and_sort
+from ..ops.geometry import preprocess_faces, project_verts
+from .config import BIN_TILE
+
+
+def _mean_f32(x, dim=None):
+    """The f32 mean as the JAX package takes it: the sum times the f32
+    reciprocal of the count (XLA turns a divide by a constant count into
+    that multiply), so the statistics equal the JAX package's bit for bit.
+    The sums here are of small integers, exact in f32."""
+    x = x.to(torch.float32)
+    n = x.numel() if dim is None else math.prod(x.shape[d] for d in dim)
+    total = x.sum() if dim is None else x.sum(dim=dim)
+    return total * (torch.tensor(1.0) / n)
+
+
+def tri_render_stats(verts, faces, mv_t, proj_t, height, width,
+                     tile: int | None = None,
+                     kcap: int | None = None) -> dict:
+    """Binning statistics for a tri scene (mv_t, proj_t [B, 4, 4]
+    transposed): num_rendered (pairs emitted), key_capacity, overflow, the
+    tile count, per-tile list size mean and max, and the fraction of culled
+    (view, face) pairs. ``tile`` defaults to the binned render's tile
+    (``BIN_TILE``), with the same exact-coverage emission, so the counts
+    are what the render builds."""
+    tile = BIN_TILE if tile is None else tile
+    B = mv_t.shape[0]
+    gx = (width + tile - 1) // tile
+    gy = (height + tile - 1) // tile
+    if kcap is None:
+        kcap = default_key_capacity(B, faces.shape[0])
+    ndc, img = project_verts(verts, mv_t, proj_t, width, height)
+    pre = preprocess_faces(ndc, img, faces, width, height, tile, tile)
+    keys = emit_and_sort(pre, gx, gy, kcap, tile_px=tile)
+    counts = keys.ends - keys.starts
+    return {
+        "num_rendered": int(keys.total),
+        "key_capacity": int(kcap),
+        "overflow": bool(keys.overflow),
+        "tiles": int(counts.shape[0]),
+        "tile_count_mean": float(_mean_f32(counts)),
+        "tile_count_max": int(counts.max()),
+        "culled_fraction": float(1.0 - _mean_f32(pre["valid"])),
+    }
+
+
+def tet_health(active) -> dict:
+    """Health counters from the tet renderer's active mask ([B, H, W]
+    bool): the active fraction per view and overall, and the inactive
+    pixels (background misses and walk failures)."""
+    active = torch.as_tensor(active)
+    frac = _mean_f32(active, dim=(1, 2))
+    return {
+        "active_fraction_per_view": [float(x) for x in frac],
+        "active_fraction": float(_mean_f32(frac)),
+        "inactive_pixels": int((~active).sum()),
+    }
+
+
+class StageTimer:
+    """Stage timing: ``with timer.stage("binning"): ...``.
+
+    On ``cuda`` (the default) each stage is timed with CUDA events on the
+    current stream and waits at its end for all of the stream's work, so
+    the stage's outputs are ready, as the JAX package's timer blocks on
+    them; on ``cpu`` with the host clock, where torch ops are done when
+    they return. Times accumulate per name, in seconds."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        self.times: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+            dt = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            yield
+            dt = time.perf_counter() - t0
+        self.times[name] = self.times.get(name, 0.0) + dt
+
+    def summary(self) -> str:
+        total = sum(self.times.values())
+        lines = [f"{k}: {v * 1000:.2f} ms" for k, v in self.times.items()]
+        lines.append(f"total: {total * 1000:.2f} ms")
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """A ``torch.profiler`` trace of the block, CPU activity and, where a
+    card is present, CUDA activity; written to
+    ``<log_dir>/trace_<pid>_<n>.json`` (Chrome trace format) at its end.
+    Yields the profiler; its ``trace_path`` is set once the block ends."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    path = os.path.join(log_dir,
+                        f"trace_{os.getpid()}_{time.monotonic_ns()}.json")
+    prof.export_chrome_trace(path)
+    prof.trace_path = path
+
+
+def _device_events(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_time_by_name(prof) -> dict:
+    """{name: (count, ms)} of a finished trace's device events (kernels,
+    copies, fills), the largest total first."""
+    acc: dict[str, list] = {}
+    for e in _device_events(prof):
+        a = acc.setdefault(e.name, [0, 0.0])
+        a[0] += 1
+        a[1] += e.time_range.elapsed_us() / 1e3
+    return {k: (c, ms) for k, (c, ms) in
+            sorted(acc.items(), key=lambda kv: -kv[1][1])}
+
+
+def device_busy_ms(prof) -> float:
+    """The device time of a finished ``trace``: the union of the intervals
+    of its device events (kernels, copies, fills), in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in _device_events(prof))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3

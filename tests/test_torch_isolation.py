@@ -14,6 +14,9 @@ BLOCKED = ("jax", "jaxlib", "dmesh_renderer_tpu", "dmesh_renderer")
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and all(f.exists() for f in files)
+    for part in ("tools/exp_round3.py", "tools/proto_march_kernel.py",
+                 "utils/diagnostics.py"):
+        assert PORT / part in files, part
     return files
 
 
@@ -65,6 +68,21 @@ c, d, a = p.TetRenderer(p.TetRenderSettings(32, 32, bg), device="cpu")(
 assert c.shape == (1, 3, 32, 32) and bool(a.any())
 (c.sum() + d.sum()).backward()
 assert bool(tet_args[2].grad.any() and tet_args[3].grad.any())
+from dmesh_renderer_tpu_torch.tools import exp_round3 as ex
+from dmesh_renderer_tpu_torch.tools import proto_march_kernel as pm
+from dmesh_renderer_tpu_torch.utils import diagnostics as dg
+cpu = torch.device("cpu")
+ex.e3(cpu, M=256)
+march, mega, ct, consts, state = ex.e5_inputs(cpu, n_grid=2, M=300)
+assert torch.equal(ex.mega_step(mega, ct, consts, state),
+                   ex.two_table_step(march["tet_geo"], march["tet_ids"],
+                                     march["shade"], ct, consts, state))
+pm.chain(*pm.random_tables(cpu, M=256, T=30, F=70), steps=2)
+st = dg.tri_render_stats(*[torch.from_numpy(x) for x in (v, f)],
+                         torch.from_numpy(mv.transpose(0, 2, 1).copy()),
+                         torch.from_numpy(proj.transpose(0, 2, 1).copy()),
+                         40, 40)
+assert st["num_rendered"] > 0 and dg.tet_health(a)["active_fraction"] > 0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("OK")
