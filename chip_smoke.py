@@ -7,7 +7,8 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 
 1. print the card (name, count, nvidia-smi name and power limit);
 2. build the CUDA kernels of dmesh_renderer_tpu_torch/csrc (one nvcc per
-   source, all at once) and print the build time and ptxas usage;
+   source, all at once) and print the build time and ptxas usage, K5's and
+   seg_sum's registers and shared memory on a line of their own;
 3. hold the forward compositing kernel (K1, ``fwd_composite``) against its
    plain torch version on the card, at 4096 triangles, 256x256, B=2 and at
    the headline scene (100k triangles, 800x800, B=1, seed 0);
@@ -24,7 +25,9 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
    and work out its bound from the run's counts;
 7. hold ``seg_sum`` against its plain version bit for bit at both shapes
    the main path gives it (the headline's record reduce and vertex
-   reduce), and time it beside ``torch.segment_reduce``;
+   reduce), print their segment lengths (mean, p99, max), and time it at
+   both beside its bound, ``torch.segment_reduce`` on rows already in CSR
+   order and ``index_select`` + ``segment_reduce`` from its own inputs;
 8. drive the training path, ``TriRenderer`` on leaf tensors that require
    grad at the headline with the loss sum(color) + sum(depth), then
    ``backward()``, counts set to 0 just before and read just after; check
@@ -51,9 +54,10 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 15. hold the tet backward march kernel (K5, ``bwd_march``) against its plain
     version with a fixed random upstream gradient, keys, records, mismatch
     flags and both gradients bit for bit, at the small tet scene and the
-    tet headline, and ``seg_sum`` at the tet reduce's shapes; print the
-    re-walk mismatch count; time K5 and work out its bound from the run's
-    counts;
+    tet headline, and ``seg_sum`` at the tet reduce's two shapes (record
+    and vertex reduce; bit for bit, then timed alone as in step 7); print
+    the re-walk mismatch count; time K5 and work out its bound from the
+    run's counts;
 16. drive the tet training path, ``TetRenderer`` on leaf ``verts_color``
     and ``faces_opacity`` at the tet headline with the loss sum(color) +
     sum(depth), then ``backward()``, counts set to 0 just before and read
@@ -164,8 +168,10 @@ FH_ROW_BYTES = 16 * 4 + 4  # first-hit table row and its slot_face entry
 # f32 operations of a K5 visit: barycentric 2, colour 18, depth 9, log T 1,
 # exp 1, the four suffix accumulators 16, dL/dalpha 12 and its background
 # term 7, the weight 2, the nine colour moments 12, termination 2; a K5
-# walk step does K4's (OPS_PER_WALK)
+# walk step does K4's but reads the normals: 4 slots x (the normal's dot 5,
+# Moller-Trumbore 51, selection 5)
 OPS_PER_BWD_VISIT = 82
+OPS_PER_BWD_WALK = 4 * (5 + 51 + 5)
 # per ray with records, what K5 reads: ray 12, zw 16, start face/tet and
 # first face 12, the 11 float rows 44, its slot offset 8; per ray its record
 # count 4 and mismatch flag 1; per record the key 4 and 10 values 40
@@ -225,6 +231,75 @@ def rel(got, want):
         return 0.0
     return float((got.double() - want.double()).abs().max()
                  / max(1.0, float(want.abs().max())))
+
+
+def seg_lengths(csr):
+    """Segment lengths of a CSR: mean, p99, max and the empty count."""
+    cnt = (csr.offsets[1:] - csr.offsets[:-1]).double()
+    return {"n": cnt.numel(), "mean": float(cnt.mean()),
+            "p99": float(torch.quantile(cnt, 0.99)), "max": int(cnt.max()),
+            "empty": int((cnt == 0).sum())}
+
+
+def time_seg_sum(x, csr, label):
+    """seg_sum alone at one main-path shape (CUDA events over back-to-back
+    calls, and the kernel's own time under the profiler), beside its bytes
+    bound (each value, row id and offset read once, each sum written
+    once), one ``torch.segment_reduce`` call on rows already in CSR order,
+    and ``index_select`` + ``segment_reduce``, which start from the same
+    inputs as seg_sum. Returns a dict of the numbers."""
+    from dmesh_renderer_tpu_torch.ops import reduce as rd
+
+    N, C = x.shape
+    n_seg = csr.offsets.numel() - 1
+    data = x.index_select(0, csr.order)
+    lib = torch.segment_reduce(data, "sum", offsets=csr.offsets)
+    check(rel(lib, rd.seg_sum(x, csr)) <= 1e-5,
+          f"segment_reduce disagrees with seg_sum at the {label}")
+    ms = cuda_ms(lambda: rd.seg_sum(x, csr), 2, 10)
+    lib_ms = cuda_ms(
+        lambda: torch.segment_reduce(data, "sum", offsets=csr.offsets), 2, 10)
+    gather_ms = cuda_ms(lambda: torch.segment_reduce(
+        x.index_select(0, csr.order), "sum", offsets=csr.offsets), 2, 10)
+    dev_ms = profiled_device_ms(lambda: rd.seg_sum(x, csr), "seg_sum")
+    b_ms, b_by, _o, _b = bound(
+        N * C, N * C * 4 + N * csr.order.element_size()
+        + csr.offsets.numel() * 8 + n_seg * C * 4)
+    seg = seg_lengths(csr)
+    log(f"seg_sum at the {label} ({N} x {C} -> {n_seg} x {C}; segment "
+        f"lengths mean {seg['mean']:.2f}, p99 {seg['p99']:.0f}, max "
+        f"{seg['max']}, empty {seg['empty']}): {ms:.4f} ms (device "
+        f"{dev_ms:.4f}); "
+        f"torch.segment_reduce on the CSR-ordered rows {lib_ms:.4f} ms, "
+        f"index_select + segment_reduce {gather_ms:.4f} ms; bound "
+        f"{b_ms:.4f} ms by {b_by}")
+    return {"ms": ms, "device_ms": dev_ms, "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib_ms, "library_gather_ms": gather_ms,
+            "shape": [N, C, n_seg], "segments": seg}
+
+
+def lane_occupancy(n):
+    """The busy share of a kernel's lane-steps when lane i of each warp of
+    32 takes ``n[i]`` steps and the warp runs as long as its longest lane."""
+    pad = (-n.numel()) % 32
+    w = torch.cat([n, n.new_zeros(pad)]).reshape(-1, 32)
+    return float(n.sum()) / max(1.0, float(w.amax(1).sum()) * 32)
+
+
+def ptxas_usage(logs, kernel):
+    """ptxas's resource lines (registers, shared memory) of the kernels
+    whose mangled names hold ``kernel``, from the build's -v output."""
+    found = []
+    for text in logs.values():
+        lines = text.splitlines()
+        for j, line in enumerate(lines):
+            if "Compiling entry function" in line and kernel in line:
+                for nxt in lines[j + 1:j + 6]:
+                    if "registers" in nxt:
+                        found.append(nxt.split(":", 1)[1].strip())
+                        break
+    return "; ".join(found) or "not reported"
 
 
 def scene_tensors(n_tris, n_views, height, width, seed, dev):
@@ -825,8 +900,8 @@ def k5_inputs(fargs, h, w, seed, gc, gd):
                                               fargs[12])
     m = saved["march"]
     return saved, (saved["ray_d"], saved["cam_o"], saved["zw"], ray_i,
-                   ray_f, off, n, m["tet_geo"], m["tet_ids"], m["shade"],
-                   h * w)
+                   ray_f, off, n, m["tet_geo"], m["tet_nrm"], m["tet_ids"],
+                   m["shade"], h * w)
 
 
 def compare_k5(fargs, h, w, seed, label, gen_seed):
@@ -906,6 +981,8 @@ def tet_train_phases(dev, head):
               f"seg_sum differs from its plain version at the {label}")
         log(f"seg_sum vs plain at the {label} ({tuple(x.shape)} -> "
             f"{tuple(s_k.shape)}): bitwise equal")
+    tet_rec = time_seg_sum(rec, csr, "tet record reduce")
+    tet_vtx = time_seg_sum(corners, csr_v, "tet vertex reduce")
 
     # ---- K5's bound on this run's data
     ray_i = k5_in[3]
@@ -915,15 +992,34 @@ def tet_train_phases(dev, head):
     # the forward when the mismatch count is 0)
     walks = n_rec - n_rays
     M = ray_i.shape[1]
-    m_tab = k5_in[7:10]
+    # the tables, read once: the 36 geometry columns of tet_geo that the
+    # walk reads (not the signs, which tet_nrm carries), tet_nrm, tet_ids
+    # and shade
+    m_tab = k5_in[7].shape[0] * 36 * 4 + sum(x.numel() * 4
+                                             for x in k5_in[8:11])
     k5_bytes = (M * (4 + 1) + n_rays * K5_RAY_BYTES + n_rec * K5_REC_BYTES
-                + sum(x.numel() * 4 for x in m_tab) + k5_in[1].numel() * 4)
+                + m_tab + k5_in[1].numel() * 4)
     k5_bound, k5_by, k5_ops_ms, k5_bytes_ms = bound(
-        n_rec * OPS_PER_BWD_VISIT + walks * OPS_PER_WALK, k5_bytes)
+        n_rec * OPS_PER_BWD_VISIT + walks * OPS_PER_BWD_WALK, k5_bytes)
     log(f"K5 at tet headline: {k5_ms:.4f} ms; plain {k5_plain_ms:.2f} ms. "
         f"Work: {n_rec} records over {n_rays} rays, {walks} walk steps -> "
         f"{k5_ops_ms:.4f} ms; {k5_bytes} bytes -> {k5_bytes_ms:.4f} ms; "
         f"bound {k5_bound:.4f} ms by {k5_by}")
+    # the share of K5's lane-visits that are busy: a warp visits as often as
+    # its longest ray; in pixel order (the kernel's), over the rays with
+    # records only, and over those sorted by length, beside the cheapest
+    # ways to build either order
+    n_all = ray_i[3].long()
+    n_act = n_all[n_all > 0]
+    occ = {k: lane_occupancy(v) for k, v in (
+        ("pixel order", n_all), ("compacted", n_act),
+        ("sorted by length", torch.sort(n_act, descending=True).values))}
+    compact_ms = cuda_ms(lambda: torch.nonzero(ray_i[3] > 0), 2, 10)
+    sort_ms = cuda_ms(lambda: torch.sort(ray_i[3], stable=True), 2, 10)
+    log("K5 lane occupancy: " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in occ.items())
+        + f"; a compacted ray list costs {compact_ms:.4f} ms "
+        f"(torch.nonzero), a sort by length {sort_ms:.4f} ms")
 
     # ---- the tet training path: TetRenderer with gradients at the headline
     leaves = [user[i].detach().clone().requires_grad_(True) for i in (2, 3)]
@@ -1082,7 +1178,8 @@ def tet_train_phases(dev, head):
           "max_abs_err": max(err_s, err_h), "ms": k5_ms,
           "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_by,
           "library_ms": None, "records": n_rec, "rays": n_rays,
-          "walk_steps": walks,
+          "walk_steps": walks, "lane_occupancy": occ,
+          "compact_ms": compact_ms, "sort_by_length_ms": sort_ms,
           "rewalk_mismatches": [mism_s, mism_h, train_mism]}
     info = {"tet_fwd_bwd_ms": fb_ms, "tet_fwd_bwd_split_ms": fb_split,
             "tet_fwd_bwd_peak_mib": fb_peak / 2**20,
@@ -1090,6 +1187,7 @@ def tet_train_phases(dev, head):
             "tet_train_step_ms": step_ms, "tet_train_losses": losses,
             "tet_seg_sum_launches": launches["seg_sum"],
             "tet_seg_sum_max_abs_err": ss_err,
+            "tet_seg_sum_record": tet_rec, "tet_seg_sum_vertex": tet_vtx,
             "tet_card_vs_cpu_grad_rel_err": e_cc}
     return k5, info
 
@@ -1105,9 +1203,10 @@ def profiled_device_ms(fn, kernel, reps=10):
 
     fn()
     torch.cuda.synchronize()
-    # The profiler has been seen to return a window without its device
-    # records (none of the kernel's launches); such a window is taken again,
-    # at most twice, and said.
+    # The profiler has been seen to return a window without some or all of
+    # its device records (0, 7 or 8 of 10 launches). The mean is taken over
+    # the launches a window holds, and said when some are missing; a window
+    # that holds none is taken again, at most twice.
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1116,13 +1215,15 @@ def profiled_device_ms(fn, kernel, reps=10):
             torch.cuda.synchronize()
         by_name = dg.device_time_by_name(prof)
         hits = [(c, ms) for n, (c, ms) in by_name.items() if kernel in n]
-        if len(hits) == 1 and hits[0][0] == reps:
-            return hits[0][1] / reps
-        log(f"profiled {kernel}, window {attempt + 1}: {hits} (want {reps} "
-            f"launches of one kernel); {len(by_name)} device names: "
+        if len(hits) == 1 and 0 < hits[0][0] <= reps:
+            if hits[0][0] < reps:
+                log(f"profiled {kernel}: the window holds {hits[0][0]} of "
+                    f"its {reps} launches; their mean is taken")
+            return hits[0][1] / hits[0][0]
+        log(f"profiled {kernel}, window {attempt + 1}: {hits} (want up to "
+            f"{reps} launches of one kernel); {len(by_name)} device names: "
             f"{[n[:60] for n in list(by_name)[:4]]}")
-    raise AssertionError(f"profiled {kernel}: no window held its {reps} "
-                         "launches")
+    raise AssertionError(f"profiled {kernel}: no window held its launches")
 
 
 def _jsonable(x):
@@ -1466,6 +1567,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {src}: {line.strip()}")
+    ptxas = {k: ptxas_usage(logs, k) for k in ("seg_sum", "tet_bwd_march")}
+    log(f"ptxas: seg_sum {ptxas['seg_sum']}; K5 tet_bwd_march "
+        f"{ptxas['tet_bwd_march']}")
 
     # ---- K1 against plain: 4096 tris at 256^2, B=2; then the headline
     user_s, fargs_s, _bg = scene_tensors(**SMALL, dev=dev)
@@ -1626,21 +1730,15 @@ def main() -> int:
               f"seg_sum differs from its plain version at the {label}")
         log(f"seg_sum vs plain at the headline {label} ({tuple(x.shape)} -> "
             f"{tuple(s_k.shape)}): bitwise equal")
-    ss_ms = cuda_ms(lambda: rd.seg_sum(vals, csr), 2, 10)
     ss_plain_ms = cuda_ms(lambda: rd.seg_sum_plain(vals, csr), 0, 1)
-    data = vals.index_select(0, csr.order)
-    lib = torch.segment_reduce(data, "sum", offsets=csr.offsets)
-    check(rel(lib, rd.seg_sum(vals, csr)) <= 1e-5,
-          "segment_reduce disagrees with seg_sum")
-    ss_lib_ms = cuda_ms(
-        lambda: torch.segment_reduce(data, "sum", offsets=csr.offsets), 2, 10)
+    tri_rec = time_seg_sum(vals, csr, "headline record reduce")
+    tri_vtx = time_seg_sum(corners, csr_v, "headline vertex reduce")
+    ss_ms, ss_lib_ms, ss_bound, ss_by = (tri_rec[k] for k in (
+        "ms", "library_ms", "bound_ms", "bound_by"))
     N, C = vals.shape
-    ss_bound, ss_by, _o, _b = bound(
-        N * C, N * C * 4 + N * 8 + csr.offsets.numel() * 8 + F * C * 4)
-    log(f"seg_sum at the headline record reduce ({N} x {C} -> {F} x {C}): "
-        f"{ss_ms:.4f} ms, plain {ss_plain_ms:.2f} ms, "
-        f"torch.segment_reduce on the CSR-ordered rows {ss_lib_ms:.4f} ms; "
-        f"bound {ss_bound:.4f} ms by {ss_by}")
+    log(f"seg_sum at the headline record reduce: {ss_ms:.4f} ms against "
+        f"torch.segment_reduce {ss_lib_ms:.4f} ms in this run (faster: "
+        f"{ss_ms < ss_lib_ms}); plain {ss_plain_ms:.2f} ms")
 
     # ---- the training path: TriRenderer with gradients at the headline
     leaves = leaves_of(user)
@@ -1781,6 +1879,7 @@ def main() -> int:
 
     tet_kernels, tet_info, tet_head = tet_phases(dev)
     k5_entry, tet_train_info = tet_train_phases(dev, tet_head)
+    k5_entry["ptxas"] = ptxas["tet_bwd_march"]
     answers, probe_launches = tools_main_path(dev)
     probe_entries = probe_kernel_phases(dev, answers, probe_launches)
     tet_head["tri_user"] = user
@@ -1820,7 +1919,12 @@ def main() -> int:
                             tet_train_info["tet_seg_sum_max_abs_err"]),
          "ms": ss_ms, "plain_ms": ss_plain_ms, "bound_ms": ss_bound,
          "bound_by": ss_by, "library_ms": ss_lib_ms,
-         "shape": [N, C, F]},
+         "library_gather_ms": tri_rec["library_gather_ms"],
+         "shape": [N, C, F], "segments": tri_rec["segments"],
+         "tri_vertex_reduce": tri_vtx,
+         "tet_record_reduce": tet_train_info["tet_seg_sum_record"],
+         "tet_vertex_reduce": tet_train_info["tet_seg_sum_vertex"],
+         "ptxas": ptxas["seg_sum"]},
         *tet_kernels, k5_entry, *probe_entries,
     ], "fwd_bwd_ms": fb_ms, "fwd_bwd_split_ms": fb_split,
         "fwd_bwd_peak_mib": fb_peak / 2**20,

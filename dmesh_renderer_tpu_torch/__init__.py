@@ -33,9 +33,14 @@ from .models.dmesh import (
     make_train_loop,
     make_train_step,
 )
+from .ops.binning import recommended_key_capacity
+from .utils.connectivity import build_tet_connectivity
+
+__version__ = "0.1.0"
 
 __all__ = ["TetGeometry", "TetRenderSettings", "TetRenderer", "TetScene",
            "TetViewBatch", "TrainState", "TriRenderSettings", "TriRenderer",
-           "TriScene", "ViewBatch", "init_tet_train_state",
-           "init_train_state", "make_tet_train_loop", "make_tet_train_step",
-           "make_train_loop", "make_train_step", "render_tet", "render_tri"]
+           "TriScene", "ViewBatch", "__version__", "build_tet_connectivity",
+           "init_tet_train_state", "init_train_state", "make_tet_train_loop",
+           "make_tet_train_step", "make_train_loop", "make_train_step",
+           "recommended_key_capacity", "render_tet", "render_tri"]

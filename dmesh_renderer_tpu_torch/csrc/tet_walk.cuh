@@ -1,6 +1,9 @@
 // The tet march's shared device code: the march tables' row widths, the
 // projective-depth clamp and the connectivity step, used by the forward
-// march (K4, tet_fwd.cu) and the backward march (K5, tet_bwd.cu) alike.
+// march (K4, tet_fwd.cu) and the experiment kernels (march_probe.cu). The
+// backward march (K5, tet_bwd.cu) takes the widths and the clamp, and walks
+// with its own variant of the step, walk_back, which reads the outward
+// normals from the march tables' tet_nrm instead of rebuilding them.
 //
 // walk_step<kDir> replaces dmesh_renderer_tpu/ops/tet.py::_connectivity_step.
 // From face cf inside tet ct (its geometry row g, id row ids) it finds the

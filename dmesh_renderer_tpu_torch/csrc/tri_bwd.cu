@@ -15,7 +15,7 @@
 // S(b), S(a d), S(c d) of the factored Moller-Trumbore gradient, nine
 // vertex-colour and three vertex-depth moments -- and one thread rebuilds
 // dL/dp0..dp2 from the moments and the face constants. Each (slot,
-// quarter) writes one 22-column record; csr seg_sum folds them later.
+// quarter) writes one 22-column record; seg_sum folds them later.
 //
 // Shape. As K1: one block of 16x16 threads per 16x16 quarter of a 32x32
 // tile, one pixel per thread, face rows staged in shared memory 256 slots
@@ -46,9 +46,34 @@
 // computed in uint32 (wrapping). All literals are f32.
 //
 // seg_sum: out[s, c] = sum of values[order[k], c] for k in
-// [offsets[s], offsets[s+1]), added in k order from 0. One thread per
-// (segment, column); the same additions as seg_sum_plain, so the two agree
-// bit for bit. Bound by bytes: each value row is read once.
+// [offsets[s], offsets[s+1]), added in k order from 0: the same additions
+// as seg_sum_plain, so the two agree bit for bit. It replaces no TPU
+// kernel: it is the port's deterministic stand-in for the JAX package's XLA
+// scatter-adds of the record and vertex reduces (tri_binned.py:301,
+// tet.py:1685,1696). Bound by bytes: each value row and row id is read
+// once, each sum written once. The rows of a segment lie anywhere in
+// `values` (a face's records are spread over its tiles or its rays), so
+// each row is a gather that waits on a load of its row id, and the sum's
+// order forbids splitting a segment. The design keeps many rows of each
+// segment in flight instead:
+//
+//   - a warp takes G segments and gives each W lanes, one per column (or
+//     per two columns, float2, for an even row of at most 16 columns), so
+//     one row is one coalesced read; a lane loads 4 rows at once;
+//   - where rows are narrow and segments long, a segment also gets J lanes
+//     per column, each loading 8 rows, so 8 J rows of it are in flight (48
+//     at the tet record reduce, where the old thread per (segment, column)
+//     had one); lane (j, w) passes its rows by shuffle to lane (0, w),
+//     which adds them in row order;
+//   - the launcher sizes J from the mean segment length (8 J about the
+//     mean, at most 32 / W) and packs G = 32 / (J W) segments per warp:
+//     short segments share a warp, long ones get its lanes.
+//
+// What still holds it: the rows are gathers from a layout their producers
+// chose (a face's records lie in its tiles, or along its rays), so the
+// card reads them at about 2 TB/s, and the longest segment (2,319 rows at
+// the tet record reduce) adds its length over 8 J rows times the load
+// latency.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -344,20 +369,115 @@ tri_bwd_kernel(const int* __restrict__ starts, const int* __restrict__ ends,
   }
 }
 
-__global__ void seg_sum_kernel(const float* __restrict__ values,
-                               const int64_t* __restrict__ order,
-                               const int64_t* __restrict__ offsets,
-                               float* __restrict__ out, long long n_out,
-                               int C) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  const long long s = i / C;
-  const int c = (int)(i - s * C);
-  float acc = 0.0f;
-  const int64_t k1 = offsets[s + 1];
-  for (int64_t k = offsets[s]; k < k1; ++k)
-    acc = acc + values[order[k] * C + c];
-  out[i] = acc;
+template <int V> struct Vec;
+template <> struct Vec<1> {
+  typedef float T;
+  static __device__ __forceinline__ T zero() { return 0.0f; }
+  static __device__ __forceinline__ void add(T& a, T b) { a = a + b; }
+  static __device__ __forceinline__ T shfl(T a, int src) {
+    return __shfl_sync(0xffffffffu, a, src);
+  }
+};
+template <> struct Vec<2> {
+  typedef float2 T;
+  static __device__ __forceinline__ T zero() { return make_float2(0.f, 0.f); }
+  static __device__ __forceinline__ void add(T& a, T b) {
+    a.x = a.x + b.x;
+    a.y = a.y + b.y;
+  }
+  static __device__ __forceinline__ T shfl(T a, int src) {
+    return make_float2(__shfl_sync(0xffffffffu, a.x, src),
+                       __shfl_sync(0xffffffffu, a.y, src));
+  }
+};
+
+// W vector columns of V floats per row. Without kRows (J = 1) the lanes are
+// (segment g < G, column w < W), G = 32 / W, and each lane loads U rows of
+// its segment at once; when W > 32 (G = 1) a lane takes the columns w, w +
+// 32, ... With kRows the lanes are (segment g < G, row j < J, column w),
+// U rows per lane, so J U rows of a segment are in flight, and lane (j, w)
+// passes each of its rows by shuffle to lane (0, w), which adds them in row
+// order; there every lane runs the warp's loop (the shuffles need all 32).
+template <int V, int U, bool kRows>
+__global__ void __launch_bounds__(256)
+seg_sum_kernel(const float* __restrict__ values, const int* __restrict__ order,
+               const int64_t* __restrict__ offsets, float* __restrict__ out,
+               int n_seg, int W, int J, int G) {
+  typedef Vec<V> Ops;
+  typedef typename Vec<V>::T T;
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const T* vals = reinterpret_cast<const T*>(values);
+  T* o = reinterpret_cast<T*>(out);
+  if (!kRows) {
+    const int g = W <= 32 ? lane / W : 0;
+    const int w0 = W <= 32 ? lane - g * W : lane;
+    const long long s = warp * G + g;
+    if (g >= G || s >= n_seg) return;
+    const int64_t k0 = offsets[s], k1 = offsets[s + 1];
+    for (int w = w0; w < W; w += 32) {
+      T acc = Ops::zero();
+      int64_t k = k0;
+      for (; k + U <= k1; k += U) {
+        int r[U];
+        T x[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) r[u] = order[k + u];
+#pragma unroll
+        for (int u = 0; u < U; ++u) x[u] = vals[(int64_t)r[u] * W + w];
+#pragma unroll
+        for (int u = 0; u < U; ++u) Ops::add(acc, x[u]);
+      }
+      if (k < k1) {
+        int r[U];
+        T x[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) r[u] = k + u < k1 ? order[k + u] : 0;
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (k + u < k1) x[u] = vals[(int64_t)r[u] * W + w];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (k + u < k1) Ops::add(acc, x[u]);
+      }
+      o[s * W + w] = acc;
+    }
+    return;
+  }
+  const int per = J * W;  // lanes of one segment
+  const int g = lane / per;
+  const int rem = lane - g * per;
+  const int j = rem / W;
+  const int w = rem - j * W;
+  const long long s = warp * G + g;
+  const bool live = g < G && s < n_seg;
+  const int64_t k0 = live ? offsets[s] : 0;
+  const int64_t k1 = live ? offsets[s + 1] : 0;
+  const int src0 = g * per + w;  // lane (0, w) of this segment
+  T acc = Ops::zero();
+  for (int64_t kb = k0;; kb += (int64_t)J * U) {
+    if (!__any_sync(0xffffffffu, kb < k1)) break;
+    int r[U];
+    T x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t k = kb + u * J + j;
+      r[u] = k < k1 ? order[k] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      x[u] = r[u] >= 0 ? vals[(int64_t)r[u] * W + w] : Ops::zero();
+    // row u J + jj of the batch is in register u of lane (jj, w)
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      for (int jj = 0; jj < J; ++jj) {
+        const T v = Ops::shfl(x[u], src0 + jj * W);
+        if (j == 0 && kb + u * J + jj < k1) Ops::add(acc, v);
+      }
+    }
+  }
+  if (live && j == 0) o[s * W + w] = acc;
 }
 
 }  // namespace
@@ -384,18 +504,42 @@ extern "C" int tri_bwd_composite(const void* starts, const void* ends,
   return (int)cudaGetLastError();
 }
 
-// Launch seg_sum on `stream`: out [n_seg, C] f32 from values [N, C] f32,
-// order [N] int64 and offsets [n_seg + 1] int64. Returns
-// cudaGetLastError().
+// Launch seg_sum on `stream`: out [n_seg, C] f32 from values [N, C] f32
+// (8-byte aligned when C is even), order [N] int32 and offsets [n_seg + 1]
+// int64. Returns cudaGetLastError().
 extern "C" int seg_sum(const void* values, const void* order,
                        const void* offsets, void* out, int n_seg, int C,
-                       void* stream) {
-  const long long n_out = (long long)n_seg * C;
-  if (n_out <= 0) return (int)cudaSuccess;
+                       int N, void* stream) {
+  if (n_seg <= 0 || C <= 0) return (int)cudaSuccess;
+  // float2 for narrow even rows, whose lanes then go to more rows; a row
+  // of over 16 columns fills the warp's lanes either way
+  const int V = C % 2 == 0 && C <= 16 ? 2 : 1;
+  const int W = C / V;
+  // rows of a segment in flight: about its mean length, 8 per lane over J
+  // lanes, while the columns leave lanes free
+  long long J = ((long long)N + 8LL * n_seg - 1) / (8LL * n_seg);
+  J = W > 16 ? 1 : (J < 1 ? 1 : (J > 32 / W ? 32 / W : J));
+  const int G = J > 1 ? (int)(32 / (J * W)) : (W <= 32 ? 32 / W : 1);
+  const long long warps = ((long long)n_seg + G - 1) / G;
   const int threads = 256;
-  const unsigned blocks = (unsigned)((n_out + threads - 1) / threads);
-  seg_sum_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)values, (const int64_t*)order, (const int64_t*)offsets,
-      (float*)out, n_out, C);
+  const unsigned blocks = (unsigned)((warps * 32 + threads - 1) / threads);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* v = (const float*)values;
+  const int* od = (const int*)order;
+  const int64_t* of = (const int64_t*)offsets;
+  float* ou = (float*)out;
+  const int j = (int)J;
+  if (J > 1 && V == 2)
+    seg_sum_kernel<2, 8, true><<<blocks, threads, 0, st>>>(v, od, of, ou,
+                                                           n_seg, W, j, G);
+  else if (J > 1)
+    seg_sum_kernel<1, 8, true><<<blocks, threads, 0, st>>>(v, od, of, ou,
+                                                           n_seg, W, j, G);
+  else if (V == 2)
+    seg_sum_kernel<2, 4, false><<<blocks, threads, 0, st>>>(v, od, of, ou,
+                                                            n_seg, W, 1, G);
+  else
+    seg_sum_kernel<1, 4, false><<<blocks, threads, 0, st>>>(v, od, of, ou,
+                                                            n_seg, W, 1, G);
   return (int)cudaGetLastError();
 }

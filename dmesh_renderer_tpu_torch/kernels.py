@@ -35,10 +35,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "tri_fwd": {"tri_fwd_composite": [_P] * 8 + [_I] * 3 + [_P]},
     "tri_bwd": {"tri_bwd_composite": [_P] * 11 + [_I] * 3 + [_P],
-                "seg_sum": [_P] * 4 + [_I] * 2 + [_P]},
+                "seg_sum": [_P] * 4 + [_I] * 3 + [_P]},
     "tet_fwd": {"tet_first_hit": [_P] * 8 + [_I] * 3 + [_P],
                 "tet_fwd_march": [_P] * 11 + [_I] * 4 + [_F, _P]},
-    "tet_bwd": {"tet_bwd_march": [_P] * 12 + [_I] * 3 + [_P]},
+    "tet_bwd": {"tet_bwd_march": [_P] * 13 + [_I] * 3 + [_P]},
     "probes": {"take_rows": [_P] * 3 + [_I] * 2 + [_P],
                "roll_merge": [_P] * 2 + [_I] + [_P]},
     "march_probe": {"mega_step": [_P] * 5 + [_I] * 2 + [_P],

@@ -158,16 +158,18 @@ class TetViewBatch(NamedTuple):
 
 def make_tet_se_fn(geom: TetGeometry, bg, height: int, width: int,
                    seed: int = 0):
-    """``se_fn(scene, batch) -> (se, count)``: the squared error of the
-    rendered colour against ``batch.target`` summed over the active pixels
-    (inactive ones render pure background and are left out), and the
-    number of values summed (3 per active pixel)."""
-    def se_fn(scene: TetScene, batch: TetViewBatch):
+    """``se_fn(scene, batch, view_offset=None) -> (se, count)``: the squared
+    error of the rendered colour against ``batch.target`` summed over the
+    active pixels (inactive ones render pure background and are left out),
+    and the number of values summed (3 per active pixel). ``view_offset``
+    is the global index of the batch's view 0, which keys the per-view ray
+    jitter (``seed`` > 0) when the batch is one shard of more views."""
+    def se_fn(scene: TetScene, batch: TetViewBatch, view_offset=None):
         color, _depth, active = render_tet_core(
             geom.verts, geom.faces, scene.verts_color, scene.faces_opacity,
             batch.mv_t, batch.proj_t, batch.inv_mv_t, batch.inv_proj_t,
             batch.faces_intense, geom.tets, geom.face_tets, geom.tet_faces,
-            bg, height, width, seed)
+            bg, height, width, seed, view_offset=view_offset)
         m = active[:, None].to(torch.float32)
         return torch.sum(m * (color - batch.target) ** 2), torch.sum(m) * 3.0
     return se_fn

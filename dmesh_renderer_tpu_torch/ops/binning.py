@@ -31,6 +31,7 @@ ranges.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -173,17 +174,31 @@ def default_key_capacity(B: int, F: int, avg_tiles_per_face: int = 16) -> int:
     return ((kcap + 127) // 128) * 128
 
 
+def overflow_warning(total: int, kcap: int, context: str) -> None:
+    """Warn that the key capacity dropped (face, tile) pairs, in the JAX
+    package's wording (``binning.overflow_warning``). The renders also
+    report the overflow as data (``return_aux``, ``tri_render_stats``)."""
+    warnings.warn(
+        f"dmesh_renderer_tpu_torch ({context}): tile-binning key capacity "
+        f"overflow ({total} (face, tile) pairs emitted > capacity {kcap}). "
+        "The FARTHEST faces of the highest view drop their tiles first. "
+        "Raise the key capacity.", stacklevel=3)
+
+
 def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
                   tile_px: int | None = None,
                   run_cap: int | None = None,
-                  sort_by: str = "depth") -> BinnedKeys:
+                  sort_by: str = "depth",
+                  warn_context: str | None = None) -> BinnedKeys:
     """Build the tile-sorted pair table from ``preprocess_faces`` output.
 
     With ``tile_px`` (the tri render path), exact-coverage emission;
     without it (the tet first hit), or above the exact path's capacity
     limit, every tile of the bbox rect is emitted, as in the JAX package.
     ``sort_by``: the per-face depth key that orders each tile's list,
-    "depth" (mean depth, tri) or "min_depth" (tet)."""
+    "depth" (mean depth, tri) or "min_depth" (tet). With ``warn_context``
+    an overflow also warns (``overflow_warning``); the decision comes from
+    the counts this function reads on the host anyway."""
     if sort_by not in ("depth", "min_depth"):
         raise ValueError(f"sort_by must be 'depth' or 'min_depth', got "
                          f"{sort_by!r}")
@@ -236,13 +251,16 @@ def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
 
     # --- runs -> slots (the first kcap in emission order are kept) ---
     total = rcnt.sum()
-    n_slots = min(int(total), kcap)
+    n_total = int(total)
+    n_slots = min(n_total, kcap)
     run = _expand(rcnt, n_slots)
     excl = torch.cumsum(rcnt, 0) - rcnt
     k = torch.arange(n_slots, device=dev) - excl[run]
     bf = runq[run]
     tile_key = (bf // F) * n_tiles + rty[run] * grid_x + rlo[run] + k
     overflow = (total > kcap) | row_overflow
+    if warn_context is not None and (n_total > kcap or row_overflow):
+        overflow_warning(n_total, kcap, warn_context)
     return _sort_and_ranges(tile_key, bf, sigma, B * n_tiles, total,
                             overflow)
 

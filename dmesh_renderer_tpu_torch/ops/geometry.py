@@ -1,7 +1,8 @@
 """Geometry primitives of the tri renderer, in plain torch.
 
 A port of the JAX package's ``ops/geometry.py`` (the tri half, with the
-gradient helpers of the backward, and the tet renderer's strict hit test).
+gradient helpers of the backward, and the tet renderer's strict hit test and
+outward face normal).
 Coverage,
 culling and sort keys are integer or boolean decisions taken from f32 values,
 so this module repeats the JAX arithmetic operation for operation:
@@ -302,6 +303,23 @@ def ray_tri_uv_grads_reference(ray_o, ray_d, p0, p1, p2):
     du_dp0 = -du_de1 - du_de2 - du_dt
     dv_dp0 = -dv_de1 - dv_de2 - dv_dt
     return du_dp0, du_de1, du_de2, dv_dp0, dv_de1, dv_de2
+
+
+# =============================================================================
+# Tet outward face normal
+# =============================================================================
+
+def face_outward_normal(p0, p1, p2, tet_center) -> torch.Tensor:
+    """Unit normal of triangle (p0, p1, p2) oriented away from
+    ``tet_center`` (each [..., 3]): the cross product of the edges over its
+    norm clamped at 1e-4, negated where it points toward the centroid. The
+    JAX package's operation order; the root is ``sqrt_rn``."""
+    n = cross(p1 - p0, p2 - p0)
+    sq = n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1] + n[..., 2] * n[..., 2]
+    norm = torch.clamp_min(sqrt_rn(sq), 1e-4)
+    n = n / norm[..., None]
+    flip = dot3(n, tet_center - p0) > 0.0
+    return torch.where(flip[..., None], -n, n)
 
 
 # =============================================================================

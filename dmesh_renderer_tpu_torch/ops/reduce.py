@@ -10,9 +10,10 @@ A ``SegmentCSR`` (built once per segment-id vector with a stable sort, a
 ``bincount`` and a ``cumsum``) lists each segment's rows in their original
 order. ``seg_sum`` then adds each segment's rows sequentially in that order,
 starting from 0: on CUDA tensors the ``seg_sum`` kernel of csrc/tri_bwd.cu
-(one thread per (segment, column)), on CPU tensors ``seg_sum_plain``, which
-does the same f32 additions in the same order, so the two agree bit for
-bit.
+(a warp per group of segments, its lanes over the columns and, for narrow
+rows and long segments, over several rows, each lane with 4 or 8 rows in
+flight), on CPU tensors ``seg_sum_plain``, which does the same f32
+additions in the same order, so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 class SegmentCSR(NamedTuple):
     """Rows grouped by segment: segment s holds rows
     ``order[offsets[s]:offsets[s + 1]]``, in increasing row order."""
-    order: torch.Tensor    # [N] int64 row ids
+    order: torch.Tensor    # [N] int32 row ids
     offsets: torch.Tensor  # [n_segments + 1] int64
 
 
@@ -38,14 +39,17 @@ def segment_csr(seg_ids: torch.Tensor, n_segments: int,
     sorting ``inner`` times as many keys; the order is the one a stable
     sort of the expanded ids would give."""
     ids = seg_ids.reshape(-1).long()
-    order = torch.sort(ids, stable=True).indices
+    if ids.numel() * inner >= 2 ** 31:
+        raise ValueError(f"segment_csr: {ids.numel() * inner} rows do not "
+                         "fit int32 row ids")
+    order = torch.sort(ids, stable=True).indices.to(torch.int32)
     counts = torch.bincount(ids, minlength=n_segments) * inner
     offsets = torch.zeros(n_segments + 1, dtype=torch.int64,
                           device=ids.device)
     offsets[1:] = torch.cumsum(counts, 0)
     if inner > 1:
-        order = (order[:, None] * inner
-                 + torch.arange(inner, device=ids.device)).reshape(-1)
+        order = (order[:, None] * inner + torch.arange(
+            inner, dtype=torch.int32, device=ids.device)).reshape(-1)
     return SegmentCSR(order, offsets)
 
 
@@ -54,8 +58,8 @@ def _check(values: torch.Tensor, csr: SegmentCSR):
         raise TypeError(
             f"seg_sum: values must be a 2-D float32 tensor, got "
             f"{values.dtype} {tuple(values.shape)}")
-    if csr.order.dtype != torch.int64 or csr.offsets.dtype != torch.int64:
-        raise TypeError("seg_sum: order and offsets must be int64")
+    if csr.order.dtype != torch.int32 or csr.offsets.dtype != torch.int64:
+        raise TypeError("seg_sum: order must be int32 and offsets int64")
     if csr.order.numel() != values.shape[0]:
         raise ValueError(
             f"seg_sum: {csr.order.numel()} ordered rows for "
@@ -77,12 +81,14 @@ def seg_sum(values: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
     from ..kernels import launch
 
     n_seg = csr.offsets.numel() - 1
-    C = values.shape[1]
+    N, C = values.shape
     vals = values.contiguous()
+    if C % 2 == 0 and C <= 16 and vals.data_ptr() % 8:
+        vals = vals.clone()  # narrow even rows are read as float2
     order = csr.order.contiguous()
     offsets = csr.offsets.contiguous()
     out = torch.empty((n_seg, C), dtype=torch.float32, device=values.device)
-    launch("tri_bwd", "seg_sum", [vals, order, offsets, out], [n_seg, C],
+    launch("tri_bwd", "seg_sum", [vals, order, offsets, out], [n_seg, C, N],
            values.device)
     seg_sum.launches += 1
     return out

@@ -71,6 +71,7 @@ BINNED_FIRST_HIT_THRESHOLD = 2048
 # log(T) after a face of opacity 1: log(T_EPS * 0.1), rounded to f32.
 LOG_T_FLOOR = float(torch.tensor(math.log(T_EPS * 0.1), dtype=torch.float32))
 TET_GEO_COLS = 40  # p0, e1, e2 of the 4 face slots (36), 4 outward signs
+TET_NRM_COLS = 12  # the 4 face slots' outward unit normals (K5's walk)
 TET_ID_COLS = 8    # 4 face ids, 4 neighbour tet ids (-1: none)
 SHADE_COLS = 12    # 9 corner colours, alpha, log(max(1 - alpha, 1e-37)), inten
 
@@ -144,12 +145,14 @@ def march_tables(verts, faces, tets, tet_faces, face_tets, verts_color,
 
     Returns a dict: ``tet_geo`` [T, 40] f32 (p0, e1, e2 of the 4 face slots,
     then the outward sign of each slot: outward = sign * n-hat, from the
-    side of the tet's centroid), ``tet_ids`` [T, 8] int32 (the slots' face
-    ids, then each slot's neighbour tet: the first entry of the face's
-    ``face_tets`` that is neither this tet nor -1), ``shade`` [B*F, 12] f32
-    (9 corner colours, alpha, log(max(1 - alpha, 1e-37)), the view's
-    intensity), and ``geo`` [F, 12] (p0, e1, e2, n-hat) and ``sign`` [T, 4]
-    for the start tet."""
+    side of the tet's centroid), ``tet_nrm`` [T, 12] f32 (each slot's
+    outward unit normal sign * n-hat, which the backward walk reads instead
+    of rebuilding it), ``tet_ids`` [T, 8] int32 (the slots' face ids, then
+    each slot's neighbour tet: the first entry of the face's ``face_tets``
+    that is neither this tet nor -1), ``shade`` [B*F, 12] f32 (9 corner
+    colours, alpha, log(max(1 - alpha, 1e-37)), the view's intensity), and
+    ``geo`` [F, 12] (p0, e1, e2, n-hat) and ``sign`` [T, 4] for the start
+    tet."""
     F = faces.shape[0]
     T = tets.shape[0]
     B = faces_intense.shape[0]
@@ -183,6 +186,10 @@ def march_tables(verts, faces, tets, tet_faces, face_tets, verts_color,
     nbr = torch.where(ok0, c0, torch.where(ok1, c1, -1))
 
     tet_geo = torch.cat([geo_tf[..., 0:9].reshape(T, 36), sign], dim=1)
+    # n-hat is the walk's normal bit for bit (the same cross product, root,
+    # clamp and divide), and a sign of +-1 multiplies exactly, so a dot
+    # with this row rounds as sign * (n-hat . d) does
+    tet_nrm = (sign[..., None] * geo_tf[..., 9:12]).reshape(T, TET_NRM_COLS)
     tet_ids = torch.cat([tet_faces.long(), nbr], dim=1).to(torch.int32)
 
     col9 = verts_color[fl].reshape(F, 9)
@@ -191,7 +198,8 @@ def march_tables(verts, faces, tets, tet_faces, face_tets, verts_color,
     base = torch.cat([col9, faces_opacity[:, None], log1ma[:, None]], dim=1)
     shade = torch.cat([base[None].expand(B, F, 11), faces_intense[..., None]],
                       dim=-1).reshape(B * F, SHADE_COLS)
-    return {"tet_geo": tet_geo.contiguous(), "tet_ids": tet_ids.contiguous(),
+    return {"tet_geo": tet_geo.contiguous(), "tet_nrm": tet_nrm.contiguous(),
+            "tet_ids": tet_ids.contiguous(),
             "shade": shade.contiguous(), "geo": geo, "sign": sign}
 
 
@@ -334,14 +342,16 @@ def _moller_trumbore(p0, e1, e2, o, d):
     return t, u, v, nd
 
 
-def _walk(g, ids, cf, o, d, direction: int = 1):
+def _walk(g, ids, cf, o, d, direction: int = 1, nrm=None):
     """One connectivity step for [L] rays: their tet's rows ``g`` [L, 40]
     and ``ids`` [L, 8], current face ``cf`` [L], origin ``o`` and direction
     ``d`` (3-lists of [L]). ``direction`` +1 walks forward (the exit face's
     outward normal has a positive dot with the ray, the entry face's a
-    negative one), -1 backward (both signs flipped). Returns (err, next
-    face, next tet, t, u, v), the kernels' per-slot arithmetic in their
-    order (csrc/tet_walk.cuh)."""
+    negative one), -1 backward (both signs flipped). ``nrm`` [L, 12], the
+    tet's ``tet_nrm`` row, gives the outward normals (K5's walk); without
+    it they are rebuilt from ``g`` (K4's), to the same bits. Returns (err,
+    next face, next tet, t, u, v), the kernels' per-slot arithmetic in their
+    order (csrc/tet_walk.cuh, csrc/tet_bwd.cu)."""
     dx, dy, dz = d
     L = cf.shape[0]
     n_other = torch.zeros(L, dtype=torch.int32, device=cf.device)
@@ -355,12 +365,17 @@ def _walk(g, ids, cf, o, d, direction: int = 1):
         sgn = g[:, 36 + j]
         tfj, nbj = ids[:, j], ids[:, 4 + j]
 
-        nx = e1y * e2z - e1z * e2y
-        ny = e1z * e2x - e1x * e2z
-        nz = e1x * e2y - e1y * e2x
-        norm = sqrt_rn(nx * nx + ny * ny + nz * nz)
-        norm = torch.maximum(norm, torch.full_like(norm, 1e-4))
-        outd = sgn * ((nx / norm) * dx + (ny / norm) * dy + (nz / norm) * dz)
+        if nrm is None:
+            nx = e1y * e2z - e1z * e2y
+            ny = e1z * e2x - e1x * e2z
+            nz = e1x * e2y - e1y * e2x
+            norm = sqrt_rn(nx * nx + ny * ny + nz * nz)
+            norm = torch.maximum(norm, torch.full_like(norm, 1e-4))
+            outd = sgn * ((nx / norm) * dx + (ny / norm) * dy
+                          + (nz / norm) * dz)
+        else:
+            outd = (nrm[:, 3 * j] * dx + nrm[:, 3 * j + 1] * dy
+                    + nrm[:, 3 * j + 2] * dz)
 
         t, u, v, nd = _moller_trumbore(p0, e1, e2, o, d)
         hit = nd & (t >= 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
@@ -588,8 +603,8 @@ def bwd_start_state(saved, face_tets, dL_dcolor, dL_ddepth, bg):
     return ray_i.contiguous(), ray_f.contiguous(), off, int(n64.sum())
 
 
-def _check_bwd_args(ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_ids,
-                    shade, N):
+def _check_bwd_args(ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_nrm,
+                    tet_ids, shade, N):
     M = ray_d.shape[0]
     B = cam_o.shape[0]
     T = tet_geo.shape[0]
@@ -599,6 +614,7 @@ def _check_bwd_args(ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_ids,
             (ray_f, torch.float32, (RAY_F_ROWS, M)),
             (off, torch.int64, (M,)),
             (tet_geo, torch.float32, (T, TET_GEO_COLS)),
+            (tet_nrm, torch.float32, (T, TET_NRM_COLS)),
             (tet_ids, torch.int32, (T, TET_ID_COLS)),
             (shade, torch.float32, (shade.shape[0], SHADE_COLS)))
     for t, dtype, shape in want:
@@ -615,7 +631,7 @@ def _check_bwd_args(ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_ids,
 
 
 def bwd_march(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int, tet_geo,
-              tet_ids, shade, N: int):
+              tet_nrm, tet_ids, shade, N: int):
     """Re-walk every ray from its last face back to its first (kernel K5)
     and write one gradient record per visited face.
 
@@ -631,7 +647,8 @@ def bwd_march(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int, tet_geo,
 
     On CUDA tensors this launches the kernel of csrc/tet_bwd.cu (and raises
     if it cannot); on CPU tensors it runs ``bwd_march_plain``."""
-    args = (ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_ids, shade)
+    args = (ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_nrm, tet_ids,
+            shade)
     _check_bwd_args(*args, N)
     if ray_d.device.type == "cpu":
         out = bwd_march_plain(*args[:6], n_records, *args[6:], N)
@@ -642,8 +659,9 @@ def bwd_march(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int, tet_geo,
     from ..kernels import launch
 
     tensors = [x.contiguous() for x in args]
-    if tensors[2].data_ptr() % 16:
-        tensors[2] = tensors[2].clone()  # the kernel reads zw as float4
+    for j in (2, 6, 7, 8, 9):  # zw and the tables are read as 16-byte rows
+        if tensors[j].data_ptr() % 16:
+            tensors[j] = tensors[j].clone()
     M = ray_d.shape[0]
     F = shade.shape[0] // cam_o.shape[0]
     dev = ray_d.device
@@ -662,7 +680,7 @@ bwd_march.mismatches = None
 
 
 def bwd_march_plain(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int,
-                    tet_geo, tet_ids, shade, N: int):
+                    tet_geo, tet_nrm, tet_ids, shade, N: int):
     """Plain torch version of ``bwd_march``: the same inputs, outputs and
     per-ray f32 arithmetic, vectorised over the rays that are still walking
     and sequential over the visits."""
@@ -728,7 +746,8 @@ def bwd_march_plain(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int,
         gt, ids = tet_geo[ctl.long()], tet_ids[ctl.long()]
         o = [cam_o[vw, j] for j in range(3)]
         d = [ray_d[live, j] for j in range(3)]
-        err, nf, nt, t2, u2, v2 = _walk(gt, ids, cfl, o, d, direction=-1)
+        err, nf, nt, t2, u2, v2 = _walk(gt, ids, cfl, o, d, direction=-1,
+                                        nrm=tet_nrm[ctl.long()])
         live = live[~err]
         ok = ~err
         cf[live], ct[live] = nf[ok], nt[ok]
@@ -756,7 +775,7 @@ def render_tet_backward(saved, faces, face_tets, bg, n_verts: int,
     m = saved["march"]
     keys, rec, _bad = bwd_march(saved["ray_d"], saved["cam_o"], saved["zw"],
                                 ray_i, ray_f, off, n_records, m["tet_geo"],
-                                m["tet_ids"], m["shade"],
+                                m["tet_nrm"], m["tet_ids"], m["shade"],
                                 saved["last_face"].shape[1])
     return reduce_tet_records(keys, rec, faces, n_verts)
 

@@ -207,7 +207,9 @@ def first_intersection_binned(verts, faces, pre, cam_o, ray_d, height: int,
     list slots the kernel staged."""
     gx = (width + TILE - 1) // TILE
     gy = (height + TILE - 1) // TILE
-    keys = emit_and_sort(pre, gx, gy, kcap, sort_by="min_depth")
+    keys = emit_and_sort(pre, gx, gy, kcap, sort_by="min_depth",
+                         warn_context="tet first hit; a dropped face cannot "
+                                      "be hit")
     table = build_first_hit_table(verts, faces, cam_o, pre["min_depth"],
                                   pre["max_depth"])[keys.sigma]
     face, t, u, v, walked = first_hit(keys.starts, keys.ends, keys.slot_face,

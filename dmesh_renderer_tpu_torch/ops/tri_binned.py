@@ -574,7 +574,10 @@ def _forward(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
 
     ndc, img = project_verts(verts, mv_t, proj_t, width, height)
     pre = preprocess_faces(ndc, img, faces, width, height, TILE, TILE)
-    keys = emit_and_sort(pre, gx, gy, kcap, tile_px=TILE, run_cap=run_cap)
+    keys = emit_and_sort(
+        pre, gx, gy, kcap, tile_px=TILE, run_cap=run_cap,
+        warn_context="render_tri_binned; raise "
+                     "TriRenderSettings.key_capacity")
     face_f32, face_i32 = build_face_table(
         verts, faces, verts_color, faces_opacity, verts_depth, faces_intense,
         img, inv_mv_t[:, 3, :3])

@@ -180,3 +180,17 @@ def test_geometry_helpers_device_agnostic():
     w = tg.wrap_i32(torch.tensor([2**31, -(2**31) - 1, 2**32 + 7]))
     assert w.tolist() == [-(2**31), 2**31 - 1, 7]
     assert tb.default_key_capacity(1, 100_000) == 1_600_000
+
+
+def test_top_level_names_match_jax():
+    """The port exports the JAX package's three other top-level names: the
+    key-capacity helper, the tet connectivity function and the version."""
+    for name in ("recommended_key_capacity", "build_tet_connectivity",
+                 "__version__"):
+        assert name in tdr.__all__ and hasattr(jdr, name)
+    assert tdr.__version__ == jdr.__version__ == "0.1.0"
+    assert tdr.recommended_key_capacity is tb.recommended_key_capacity
+    tets = np.array([[0, 1, 2, 3], [1, 2, 3, 4]], np.int32)
+    for got, want in zip(tdr.build_tet_connectivity(tets),
+                         jdr.build_tet_connectivity(tets)):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

@@ -163,3 +163,32 @@ def test_in_tri_clamp_and_intersection():
     assert _eq(jnd, tnd)
     np.testing.assert_allclose(ttuv.numpy(), np.asarray(jtuv), rtol=1e-4,
                                atol=1e-5)
+
+
+def test_face_outward_normal_matches_jax():
+    """``face_outward_normal`` against JAX's: the two cases of
+    ``tests/test_geometry.py`` (centroid above and below the z = 0
+    triangle), bit for bit; then random triangles and centroids within
+    1e-6 (XLA:CPU contracts the cross product's a*b - c*d into FMAs, the
+    port rounds both products), and zero-area triangles, whose normal is 0
+    (their norm clamps at 1e-4)."""
+    p0, p1, p2 = (np.array(x, np.float32) for x in
+                  ([0, 0, 0], [1, 0, 0], [0, 1, 0]))
+    for c, want in (([0.25, 0.25, 0.5], [0, 0, -1]),
+                    ([0.25, 0.25, -0.5], [0, 0, 1])):
+        c = np.array(c, np.float32)
+        got = tg.face_outward_normal(*(torch.from_numpy(x)
+                                       for x in (p0, p1, p2, c)))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+        assert _eq(jg.face_outward_normal(*(jnp.asarray(x)
+                                            for x in (p0, p1, p2, c))), got)
+
+    rng = np.random.RandomState(8)
+    pts = rng.randn(4, 500, 3).astype(np.float32)
+    want = np.asarray(jg.face_outward_normal(*(jnp.asarray(x) for x in pts)))
+    got = tg.face_outward_normal(*(torch.from_numpy(x) for x in pts)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-6)
+    pts[2] = pts[1]
+    flat = tg.face_outward_normal(*(torch.from_numpy(x) for x in pts))
+    assert not flat.any()

@@ -48,7 +48,8 @@ def _bwd_inputs(t, h, w, seed, gc, gd):
     ray_i, ray_f, off, n = pt.bwd_start_state(saved, t[10], gc, gd, t[12])
     m = saved["march"]
     return saved, (saved["ray_d"], saved["cam_o"], saved["zw"], ray_i, ray_f,
-                   off, n, m["tet_geo"], m["tet_ids"], m["shade"], h * w)
+                   off, n, m["tet_geo"], m["tet_nrm"], m["tet_ids"],
+                   m["shade"], h * w)
 
 
 def _grads(t, h, w, seed, gc, gd):
@@ -65,7 +66,7 @@ def _rel(got, want):
     return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
 
 
-@pytest.mark.parametrize("case", ["adversarial", "outside"])
+@pytest.mark.parametrize("case", ["adversarial", "outside", "odd_37x50"])
 def test_bwd_march_kernel_matches_plain(case, cuda, monkeypatch):
     """K5 against its plain version on the same CUDA inputs: keys, records
     and mismatch flags bit for bit, and the gradients reduced from each."""
@@ -86,6 +87,37 @@ def test_bwd_march_kernel_matches_plain(case, cuda, monkeypatch):
     for a, b in zip(pt.reduce_tet_records(*got[:2], t[1], n_verts),
                     pt.reduce_tet_records(*want[:2], t[1], n_verts)):
         assert torch.equal(a, b)
+
+
+def test_bwd_march_kernel_bad_rays(cuda, monkeypatch):
+    """K5 against its plain version where re-walks do not retrace the
+    forward, at B=2: every 7th ray with records is given a first face it
+    never meets, so it walks past the forward's first face, and every 11th
+    ray with two or more records a start tet of -1, so its walk ends after
+    one visit and its other slots take the absorber key F and zeros. Each
+    such ray's mismatch flag is set."""
+    monkeypatch.setattr(pt, "BINNED_FIRST_HIT_THRESHOLD", 1)
+    args, h, w, seed = _scene("adversarial")
+    t = tet_args_from_numpy(*args, device=cuda)
+    gc, gd = _upstream(t[4].shape[0], h, w, cuda)
+    _saved, inputs = _bwd_inputs(t, h, w, seed, gc, gd)
+    ray_i = inputs[3].clone()
+    lost = torch.nonzero(ray_i[3] > 0).squeeze(1)[::7]
+    cut = torch.nonzero(ray_i[3] > 1).squeeze(1)[3::11]
+    ray_i[2, lost] = -5
+    ray_i[1, cut] = -1
+    inputs = inputs[:3] + (ray_i,) + inputs[4:]
+    got = pt.bwd_march(*inputs)
+    torch.cuda.synchronize()
+    want = pt.bwd_march_plain(*inputs)
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+    bad = torch.zeros_like(got[2])
+    bad[lost], bad[cut] = 1, 1
+    assert torch.equal(got[2], bad)
+    F = t[1].shape[0]
+    n_abs = int((ray_i[3, cut] - 1).sum())
+    assert int((got[0] == F).sum()) == n_abs > 0
 
 
 @pytest.mark.parametrize("case", ["adversarial", "outside"])

@@ -100,6 +100,58 @@ def test_seg_sum_bitwise(cuda):
     assert torch.equal(got, trd.seg_sum_plain(vals, csr))
 
 
+def _seg_case(case, dev):
+    """(values, csr) of one seg_sum edge case, made with numpy from a
+    seed: random segments with empty ones at C of 1, 10, 22 and 6 + B for
+    B of 1 and 2 (the main path's column counts), and 33 and 70 (more
+    columns than a warp's lanes); rows not 8-byte aligned; no rows; no
+    segments; one segment of 100k rows; ``inner`` 4."""
+    rng = np.random.RandomState(11)
+    n, n_seg = 50_000, 3000
+    inner = 1
+    if case.startswith("C="):
+        C = int(case[2:])
+        ids = rng.randint(0, n_seg, size=n)
+        ids = np.where(ids % 5 == 0, n_seg - 1, ids)  # many empty segments
+    elif case == "unaligned":
+        C, ids = 10, rng.randint(0, n_seg, size=n)
+    elif case == "no rows":
+        C, ids = 10, np.zeros(0, np.int64)
+    elif case == "no segments":
+        C, n_seg, ids = 22, 0, np.zeros(0, np.int64)
+    elif case == "one 100k segment":
+        C, n_seg, ids = 10, 1, np.zeros(100_000, np.int64)
+    else:
+        assert case == "inner 4"
+        C, inner, ids = 22, 4, rng.randint(0, n_seg, size=n // 4)
+    rows = len(ids) * inner
+    buf = torch.from_numpy(rng.randn(rows * C + 1).astype(np.float32))
+    # a view one float into the buffer is 4 bytes off 8-byte alignment
+    start = 1 if case == "unaligned" else 0
+    vals = buf.to(dev)[start:start + rows * C].view(rows, C)
+    csr = trd.segment_csr(torch.from_numpy(ids).to(dev), n_seg, inner=inner)
+    return vals, csr
+
+
+@pytest.mark.parametrize("case", [
+    "C=1", "C=10", "C=22", "C=7", "C=8", "C=33", "C=70", "unaligned",
+    "no rows", "no segments", "one 100k segment", "inner 4"])
+def test_seg_sum_edge_cases_bitwise(case, cuda):
+    """seg_sum on the card against its plain version, bit for bit, at the
+    shapes and edges its lane layout treats apart."""
+    vals, csr = _seg_case(case, cuda)
+    before = trd.seg_sum.launches
+    got = trd.seg_sum(vals, csr)
+    torch.cuda.synchronize()
+    n_seg = csr.offsets.numel() - 1
+    assert trd.seg_sum.launches == before + 1
+    assert got.shape == (n_seg, vals.shape[1])
+    want = trd.seg_sum_plain(vals, csr)
+    assert torch.equal(got, want)
+    if vals.shape[0] and n_seg:
+        assert bool(want.any())
+
+
 def _grads(t, h, w, force, loss_w):
     t = list(t)
     for i in DIFF:

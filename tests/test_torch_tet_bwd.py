@@ -179,6 +179,35 @@ def test_walk_matches_jax_connectivity_step(spec, direction):
         np.testing.assert_array_equal(t2n(got)[ok], np.asarray(want)[ok])
 
 
+@pytest.mark.parametrize("direction", [1, -1])
+def test_walk_normal_table_bit_equal(spec, direction):
+    """``march_tables``' ``tet_nrm`` (sign * n-hat per slot, which K5's walk
+    reads) gives the walk the bits of the normals it rebuilds from the
+    geometry, on every (tet, face slot) of the spec scene with rays through
+    the face's centroid and with random rays."""
+    t = spec["t"]
+    m = pt.march_tables(t[0], t[1], t[9], t[11], t[10], t[2], t[3], t[8])
+    T = m["tet_geo"].shape[0]
+    tet = torch.arange(T).repeat_interleave(4)
+    slot = torch.arange(4).repeat(T)
+    cf = m["tet_ids"][tet, slot]
+    centroid = t[0][t[1][cf.long()].long()].mean(dim=1)
+    inner = t[0][t[9][tet].long()].mean(dim=1)
+    rng = np.random.RandomState(12)
+    o_rand = torch.from_numpy(rng.randn(4 * T, 3).astype(np.float32))
+    d_rand = torch.from_numpy(rng.randn(4 * T, 3).astype(np.float32))
+    o = torch.cat([inner + (centroid - inner) * 3.0 * direction, o_rand])
+    d = torch.cat([centroid - o[:4 * T], d_rand])
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    tet, cf = tet.repeat(2), cf.repeat(2)
+    g, ids, nrm = m["tet_geo"][tet], m["tet_ids"][tet], m["tet_nrm"][tet]
+    want = pt._walk(g, ids, cf, o.unbind(1), d.unbind(1), direction)
+    got = pt._walk(g, ids, cf, o.unbind(1), d.unbind(1), direction, nrm=nrm)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert 0 < int((~want[0]).sum()) < want[0].numel()
+
+
 def test_walk_back_returns_to_the_previous_face(spec):
     """A forward step and a backward step from the face it reached, inside
     the same tet, lead back to the first face with its t/u/v."""
@@ -274,8 +303,8 @@ def test_bwd_march_records(spec):
     before = pt.bwd_march.launches
     keys, rec, bad = pt.bwd_march(saved["ray_d"], saved["cam_o"],
                                   saved["zw"], ray_i, ray_f, off, n,
-                                  m["tet_geo"], m["tet_ids"], m["shade"],
-                                  s["h"] * s["w"])
+                                  m["tet_geo"], m["tet_nrm"], m["tet_ids"],
+                                  m["shade"], s["h"] * s["w"])
     assert pt.bwd_march.launches == before  # the plain version on the CPU
     act = saved["is_active"].reshape(-1)
     nc = saved["n_contrib"].reshape(-1)
@@ -290,12 +319,12 @@ def test_bwd_march_records(spec):
     assert torch.equal(keys[last], saved["first_face"].reshape(-1)[r])
     with pytest.raises(TypeError):
         pt.bwd_march(saved["ray_d"], saved["cam_o"], saved["zw"],
-                     ray_i.long(), ray_f, off, n, m["tet_geo"], m["tet_ids"],
-                     m["shade"], s["h"] * s["w"])
+                     ray_i.long(), ray_f, off, n, m["tet_geo"],
+                     m["tet_nrm"], m["tet_ids"], m["shade"], s["h"] * s["w"])
     with pytest.raises(ValueError):
         pt.bwd_march(saved["ray_d"], saved["cam_o"], saved["zw"], ray_i,
-                     ray_f[:10], off, n, m["tet_geo"], m["tet_ids"],
-                     m["shade"], s["h"] * s["w"])
+                     ray_f[:10], off, n, m["tet_geo"], m["tet_nrm"],
+                     m["tet_ids"], m["shade"], s["h"] * s["w"])
 
 
 def test_grads_bitwise_deterministic(adversarial):

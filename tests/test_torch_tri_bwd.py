@@ -296,6 +296,28 @@ def test_seg_sum_plain_matches_float64():
         trd.seg_sum(torch.from_numpy(vals).double(), csr)
 
 
+def test_segment_csr_int32_and_edges():
+    """``segment_csr`` gives int32 row ids (the kernel's input) and int64
+    offsets; seg_sum takes no other id type; no rows give zero sums, no
+    segments an empty result, and one long segment adds in row order."""
+    ids = torch.tensor([2, 0, 2, 1, 0])
+    csr = trd.segment_csr(ids, 4, inner=2)
+    assert csr.order.dtype == torch.int32 and csr.offsets.dtype == torch.int64
+    assert csr.order.tolist() == [2, 3, 8, 9, 6, 7, 0, 1, 4, 5]
+    assert csr.offsets.tolist() == [0, 4, 6, 10, 10]
+    vals = torch.arange(20, dtype=torch.float32).reshape(10, 2)
+    with pytest.raises(TypeError):
+        trd.seg_sum(vals, trd.SegmentCSR(csr.order.long(), csr.offsets))
+    none = trd.segment_csr(torch.zeros(0, dtype=torch.int64), 3)
+    assert torch.equal(trd.seg_sum(torch.zeros(0, 2), none), torch.zeros(3, 2))
+    empty = trd.segment_csr(torch.zeros(0, dtype=torch.int64), 0)
+    assert trd.seg_sum(torch.zeros(0, 5), empty).shape == (0, 5)
+    x = torch.tensor([[1e8], [1.0], [-1e8], [1.0]])
+    one = trd.segment_csr(torch.zeros(4, dtype=torch.int64), 1)
+    # ((1e8 + 1) - 1e8) + 1 in f32: the 1 is lost to rounding, then added
+    assert trd.seg_sum(x, one).item() == 1.0
+
+
 def test_empty_geometry_zero_grads():
     """P == 0: a constant zero image; F == 0: background through the
     oracle. Both give zero gradients of the inputs' shapes."""

@@ -63,7 +63,7 @@ def main():
     ray_i, ray_f, off, n = pt.bwd_start_state(saved, t[10], wc, wd, t[12])
     keys, rec, bad = pt.bwd_march_plain(
         saved["ray_d"], saved["cam_o"], saved["zw"], ray_i, ray_f, off, n,
-        m["tet_geo"], m["tet_ids"], m["shade"], H * W)
+        m["tet_geo"], m["tet_nrm"], m["tet_ids"], m["shade"], H * W)
     g_vc, g_fo = pt.reduce_tet_records(keys, rec, t[1], t[0].shape[0])
 
     t64 = float64_tet_module()
@@ -74,8 +74,8 @@ def main():
                                                    d(t[12]))
     keys2, rec2, bad2 = t64.bwd_march_plain(
         d(saved["ray_d"]), d(saved["cam_o"]), d(saved["zw"]), ray_i2,
-        ray_f2, off2, n2, d(m["tet_geo"]), m["tet_ids"], d(m["shade"]),
-        H * W)
+        ray_f2, off2, n2, d(m["tet_geo"]), d(m["tet_nrm"]), m["tet_ids"],
+        d(m["shade"]), H * W)
     print(f"records {n} (float64 re-walk {n2}); keys equal "
           f"{torch.equal(keys, keys2)}; re-walk mismatches {int(bad.sum())} "
           f"(float64 {int(bad2.sum())})")
