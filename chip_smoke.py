@@ -20,14 +20,19 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
    at 800x800 with 20k triangles, and binned against the dense oracle at
    4096 triangles;
 6. hold the backward kernel (K2, ``bwd_composite``) against its plain
-   version with a fixed random upstream gradient, records and the five
-   gradients, at 4096 triangles/256x256/B=2 and at the headline; time it
+   version with a fixed random upstream gradient, at 4096
+   triangles/256x256/B=2 and at the headline: the compacted records (each
+   tile's walked prefix only) and their slot ids bit for bit, and the five
+   gradients bit for bit against plain's and against the reduce of the
+   plain version's full [S, 4, 22] layout (every slot a row); time it,
+   print the walked slots and (slot, quarter) pairs and the record bytes,
    and work out its bound from the run's counts;
 7. hold ``seg_sum`` against its plain version bit for bit at both shapes
-   the main path gives it (the headline's record reduce and vertex
-   reduce), print their segment lengths (mean, p99, max), and time it at
-   both beside its bound, ``torch.segment_reduce`` on rows already in CSR
-   order and ``index_select`` + ``segment_reduce`` from its own inputs;
+   the main path gives it (the headline's record reduce of the compacted
+   records and its vertex reduce), print their segment lengths (mean, p99,
+   max), and time it at both beside its bound, ``torch.segment_reduce`` on
+   rows already in CSR order and ``index_select`` + ``segment_reduce``
+   from its own inputs;
 8. drive the training path, ``TriRenderer`` on leaf tensors that require
    grad at the headline with the loss sum(color) + sum(depth), then
    ``backward()``, counts set to 0 just before and read just after; check
@@ -85,7 +90,12 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
     tables, and step 1 and a 2-step chain on the tet headline's mesh, where
     rays advance; print the largest difference, each kernel's device time
     under the profiler, the plain versions' times with the tools' timer,
-    and the bound from the run's counts;
+    and the bound from the run's counts (T1 also its 32-byte sector
+    floor);
+20b. split the host cost of one T1 call into its pieces (checks, output
+    allocation, device, stream, pointers, the ctypes call), in us per call
+    over 2,000 calls, for the call path before the lean one (rebuilt from
+    its pieces) and for ``kernels.launch`` now, beside ``torch.gather``;
 21. ``utils.diagnostics`` at the headlines: ``tri_render_stats`` (770,003
     pairs, no overflow) and ``tet_health`` (577,334 active pixels);
 22. a ``diagnostics.trace`` of one tet and one tri training frame, each
@@ -199,6 +209,7 @@ OPS_T4_RAY = OPS_PER_WALK + 21 + 1 + 6 + 1 + 1 + 1 + 8 + 1
 T3_RAY_BYTES = 4 + 6 * 4 + 16 * 4 + 17 * 4
 T4_RAY_BYTES = 4 + 4 + 10 * 4 + 15 * 4 + 16 * 4
 TRACE_DIR = Path(__file__).resolve().parent / ".traces"
+LAUNCH_CALLS = 2000  # calls per mean in the launch path's split
 
 
 def log(*a):
@@ -243,7 +254,8 @@ def seg_lengths(csr):
 
 def time_seg_sum(x, csr, label):
     """seg_sum alone at one main-path shape (CUDA events over back-to-back
-    calls, and the kernel's own time under the profiler), beside its bytes
+    calls, and the kernel's own time under the profiler; its plain
+    version once), beside its bytes
     bound (each value, row id and offset read once, each sum written
     once), one ``torch.segment_reduce`` call on rows already in CSR order,
     and ``index_select`` + ``segment_reduce``, which start from the same
@@ -262,6 +274,7 @@ def time_seg_sum(x, csr, label):
     gather_ms = cuda_ms(lambda: torch.segment_reduce(
         x.index_select(0, csr.order), "sum", offsets=csr.offsets), 2, 10)
     dev_ms = profiled_device_ms(lambda: rd.seg_sum(x, csr), "seg_sum")
+    plain_ms = cuda_ms(lambda: rd.seg_sum_plain(x, csr), 0, 1)
     b_ms, b_by, _o, _b = bound(
         N * C, N * C * 4 + N * csr.order.element_size()
         + csr.offsets.numel() * 8 + n_seg * C * 4)
@@ -269,11 +282,12 @@ def time_seg_sum(x, csr, label):
     log(f"seg_sum at the {label} ({N} x {C} -> {n_seg} x {C}; segment "
         f"lengths mean {seg['mean']:.2f}, p99 {seg['p99']:.0f}, max "
         f"{seg['max']}, empty {seg['empty']}): {ms:.4f} ms (device "
-        f"{dev_ms:.4f}); "
+        f"{dev_ms:.4f}; plain {plain_ms:.2f}); "
         f"torch.segment_reduce on the CSR-ordered rows {lib_ms:.4f} ms, "
         f"index_select + segment_reduce {gather_ms:.4f} ms; bound "
         f"{b_ms:.4f} ms by {b_by}")
-    return {"ms": ms, "device_ms": dev_ms, "bound_ms": b_ms,
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": lib_ms, "library_gather_ms": gather_ms,
             "shape": [N, C, n_seg], "segments": seg}
@@ -453,23 +467,26 @@ def needed_work(inputs, got):
 
 def bwd_work(inputs, nc):
     """What K2's run needs: (visits, active visits, live (slot, quarter)
-    pairs, face rows). A pixel tests coverage at every slot below its
-    n_contrib; an active visit is a covered one (a ray parallel to its
-    face, which the kernel also drops, is not subtracted); a (slot,
-    quarter) is live when any of its pixels is active; a tile needs the
-    rows of its slots below its largest n_contrib."""
+    pairs, face rows, walked (slot, quarter) pairs). A pixel tests coverage
+    at every slot below its n_contrib; an active visit is a covered one (a
+    ray parallel to its face, which the kernel also drops, is not
+    subtracted); a (slot, quarter) is live when any of its pixels is
+    active; a tile walks (and needs the rows of) its slots below its
+    largest n_contrib, a quarter those below its own largest."""
     starts, ends, _sf, _ff, _fi, _rd, B, H, W = inputs
     gx, gy = (W + 31) // 32, (H + 31) // 32
     ncp = _tile_planes(nc.long(), B, H, W, gx, gy, 0)  # [NT, 1024]
     count = (ends - starts).long()
     visits = int(nc.long().sum())
     rows = int(torch.minimum(count, ncp.max(dim=1).values).sum())
+    quarter_max = ncp.reshape(-1, 2, 16, 2, 16).amax(dim=(2, 4))
+    pairs = int(torch.minimum(count[:, None, None], quarter_max).sum())
     active = live = 0
     for _sl, t, cov, pos in _slot_chunks(inputs):
         act = cov & (pos[:, None] < ncp[t])
         active += int(act.sum())
         live += int(act.reshape(-1, 2, 16, 2, 16).any(dim=(2, 4)).sum())
-    return visits, active, live, rows
+    return visits, active, live, rows, pairs
 
 
 def bound(ops, nbytes):
@@ -478,37 +495,79 @@ def bound(ops, nbytes):
                                    else "bytes"), ops_ms, bytes_ms
 
 
+def _full_walk(starts, ends, _n_contrib, _B, _H, _W):
+    """``walked_slots`` with every slot walked: the tile ranges cover the
+    slots in order, so the plain version puts each record at its own slot,
+    the full [S, 4, 22] layout that K2 wrote before the compaction."""
+    check(int(starts[0]) == 0 and torch.equal(starts[1:], ends[:-1]),
+          "tile ranges do not cover the slots in order")
+    return torch.cat([starts, ends[-1:]]), int(ends[-1])
+
+
+def full_layout_plain(inputs, state, gin):
+    """The plain version's records in the full layout (one row per slot,
+    zeros past each tile's walk) and their slot ids, arange(S)."""
+    from dmesh_renderer_tpu_torch.ops import tri_binned as tb
+
+    walked_slots = tb.walked_slots
+    tb.walked_slots = _full_walk
+    try:
+        return tb.bwd_composite_plain(*inputs[:6], *state, gin, *inputs[6:])
+    finally:
+        tb.walked_slots = walked_slots
+
+
 def compare_k2(inputs, k1_out, faces, faces_intense, n_verts, sigma, label,
                seed):
     """K2 against its plain version on the same CUDA inputs and a fixed
-    random upstream gradient; then the five gradients reduced from each."""
+    random upstream gradient, compacted records and slot ids bit for bit;
+    then the five gradients reduced from each, and from the plain
+    version's full layout (every slot a row), bit for bit."""
     from dmesh_renderer_tpu_torch.ops import tri_binned as tb
 
     B, H, W = inputs[6:]
     g = torch.Generator().manual_seed(seed)
     gin = torch.randn((B, 5, H, W), generator=g).to(inputs[5].device)
     state = k1_out[2:]
+    # free NaN-filled blocks of the output's sizes, which the caching
+    # allocator hands to the call: a row K2 does not write then shows
+    _offs, total = tb.walked_slots(inputs[0], inputs[1], state[2], B, H, W)
+    for n in (total * 4 * tb.REC_COLS, total):
+        torch.full((n,), float("nan"), device=gin.device)
     before = tb.bwd_composite.launches
-    rec = tb.bwd_composite(*inputs[:6], *state, gin, B, H, W)
+    rec, ids = tb.bwd_composite(*inputs[:6], *state, gin, B, H, W)
     torch.cuda.synchronize()
     check(tb.bwd_composite.launches == before + 1, "K2 did not launch")
-    want = tb.bwd_composite_plain(*inputs[:6], *state, gin, B, H, W)
+    want, want_ids = tb.bwd_composite_plain(*inputs[:6], *state, gin, B, H, W)
     torch.cuda.synchronize()
     check(bool((want != 0).any()), f"{label}: K2 records all zero")
+    check(rec.shape == want.shape and torch.equal(ids, want_ids),
+          f"{label}: K2's compacted rows or slot ids differ from plain")
     e_rec = rel(rec, want)
     check(np.isfinite(e_rec) and e_rec <= K2_RTOL,
           f"{label}: K2 records rel err {e_rec}")
-    gk = tb.reduce_records(rec, inputs[2], sigma, inputs[3], faces,
-                           faces_intense, n_verts)
-    gp = tb.reduce_records(want, inputs[2], sigma, inputs[3], faces,
-                           faces_intense, n_verts)
+    check(torch.equal(rec, want), f"{label}: K2 records differ from plain "
+          f"(rel err {e_rec})")
+    args = (inputs[2], sigma, inputs[3], faces, faces_intense, n_verts)
+    gk = tb.reduce_records(rec, ids, *args)
+    gp = tb.reduce_records(want, want_ids, *args)
     e_grad = max(rel(a, b) for a, b in zip(gk, gp))
-    check(e_grad <= K2_RTOL, f"{label}: K2 gradients rel err {e_grad}")
-    log(f"K2 vs plain [{label}]: records rel err {e_rec:.3g}, gradients rel "
-        f"err {e_grad:.3g} (tol {K2_RTOL}); records equal "
-        f"{torch.equal(rec, want)}")
+    check(all(torch.equal(a, b) for a, b in zip(gk, gp)),
+          f"{label}: K2 gradients differ from plain's (rel {e_grad})")
+    full, all_ids = full_layout_plain(inputs, state, gin)
+    S = inputs[2].numel()
+    check(full.shape[0] == S and torch.equal(full[ids.long()], rec),
+          f"{label}: the full layout's walked rows differ from K2's")
+    gf = tb.reduce_records(full, all_ids, *args)
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(gk, gf)),
+          f"{label}: K2's gradients differ from the full layout's reduce")
+    log(f"K2 vs plain [{label}]: {rec.shape[0]} walked slots of {S} "
+        f"({rec.numel() * 4} record bytes), records and slot ids bitwise "
+        f"equal; the five gradients bitwise equal to plain's and to the "
+        f"reduce of the full [S, 4, 22] layout")
     return max(float((rec - want).abs().max()), max(
-        float((a - b).abs().max()) for a, b in zip(gk, gp))), rec, gin
+        float((a - b).abs().max()) for a, b in zip(gk, gp))), (rec, ids), gin
 
 
 def leaves_of(user):
@@ -1296,10 +1355,14 @@ def probe_kernel_phases(dev, answers, launches):
             check(torch.equal(got, want), f"T1 S={S} R={R} differs from plain")
             check(torch.equal(got, torch.gather(tab, 0, idx64)),
                   f"T1 S={S} R={R} differs from torch.gather")
-            # the table elements the lookups touch, read once
+            # the table elements the lookups touch, read once; and the
+            # floor the card's 32-byte sectors set: each distinct sector
+            # the lookups land in is fetched whole
             touched = int(torch.unique(idx64 * 128 + lane).numel())
+            sectors = int(torch.unique((idx64 * 128 + lane) // 8).numel())
             b_ms, b_by, _o, _b = bound(2 * R * 128,
                                        2 * R * 128 * 4 + touched * 4)
+            sector_ms = (2 * R * 128 * 4 + sectors * 32) / PEAK_BYTES * 1e3
             ms, lib_ms = answers["e2"][(S, R)]
             t1[(S, R)] = dict(
                 ms=ms,
@@ -1307,15 +1370,17 @@ def probe_kernel_phases(dev, answers, launches):
                     lambda: ex.take_rows(tab, idx), "take_rows_kernel"),
                 plain_ms=measure(lambda: ex.take_rows_plain(tab, idx)),
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                touched=touched)
+                touched=touched, sectors=sectors, sector_floor_ms=sector_ms)
             r = t1[(S, R)]
             route = "shared memory" if S <= 96 else "L2"
             log(f"T1 take_rows S={S} R={R} ({route}): bit-equal to plain "
                 f"and torch.gather; {r['ms']:.4f} ms per call, device "
                 f"{r['device_ms']:.4f} ms, "
                 f"plain {r['plain_ms']:.4f}, torch.gather "
-                f"{r['library_ms']:.4f}; {touched} table elements touched; "
-                f"bound {b_ms:.5f} ms by {b_by}")
+                f"{r['library_ms']:.4f} (no slower: "
+                f"{r['ms'] <= r['library_ms']}); {touched} table elements "
+                f"touched in {sectors} sectors; bound {b_ms:.5f} ms by "
+                f"{b_by}, sector floor {sector_ms:.5f} ms")
     t1_err = _max_diff(t1_pairs)
 
     # ---- T2: the [5000, 12, 128] buffer, keys in runs of 16
@@ -1433,7 +1498,8 @@ def probe_kernel_phases(dev, answers, launches):
          "replaces": "tools/exp_round3.py:151",
          "launches": launches["take_rows"], "max_abs_err": t1_err,
          **{k: main_t1[k] for k in ("ms", "device_ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")},
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "sector_floor_ms")},
          "shape": [PROBE_TABLE_ROWS[-1], PROBE_LOOKUP_ROWS[-1], 128],
          "by_shape": {f"S={S},R={R}": v for (S, R), v in t1.items()}},
         {"route": "cuda", "name": "roll_merge",
@@ -1465,6 +1531,137 @@ def probe_kernel_phases(dev, answers, launches):
          "distinct_tets_after_step1": n_ct,
          "mesh_lanes_advanced": n_adv},
     ]
+
+
+def host_us(fn, n=LAUNCH_CALLS, rounds=3):
+    """Host microseconds per call of ``fn()``: the least of ``rounds``
+    means over ``n`` back-to-back calls (perf_counter; the card is drained
+    before each round and not waited for inside it)."""
+    fn()
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
+def _checks_before(tab, idx):
+    """T1's wrapper checks as they were before the lean call path: shape
+    tuples built per check, a generator over the devices."""
+    S, R = tab.shape[0], idx.shape[0]
+    for t, dtype, shape in ((tab, torch.float32, (S, 128)),
+                            (idx, torch.int32, (R, 128))):
+        if t.dtype != dtype:
+            raise TypeError("take_rows: dtype")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError("take_rows: shape")
+    if S == 0:
+        raise ValueError("take_rows: empty table")
+    dev = tab.device
+    if any(t.device != dev for t in (tab, idx)):
+        raise ValueError("take_rows: devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError("take_rows: device")
+    return dev.type == "cuda"
+
+
+def _launch_before(fn, tensors, scalars, device):
+    """``kernels.launch`` as it was before the lean call path: a
+    ``torch.cuda.device`` context, a ``Stream`` object for the handle, a
+    ``c_void_p`` per pointer."""
+    import ctypes
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*[ctypes.c_void_p(t.data_ptr()) for t in tensors], *scalars,
+                 ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"launch failed: CUDA error {err}")
+
+
+def launch_path_split(dev):
+    """The host cost of one T1 call, piece by piece, in us per call over
+    LAUNCH_CALLS calls (``host_us``), the call path before the lean one
+    (rebuilt here from its pieces) beside the one ``kernels.launch`` takes
+    now. At S 48,000 and R 8, where the kernel's device time is below the
+    host's, so the card never holds the host back."""
+    import ctypes
+
+    from dmesh_renderer_tpu_torch import kernels
+    from dmesh_renderer_tpu_torch.tools import exp_round3 as ex
+
+    rng = np.random.RandomState(1)
+    S, R = 48_000, 8
+    tab = torch.from_numpy(rng.rand(S, 128).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.randint(0, S, (R, 128)).astype(np.int32)).to(dev)
+    out = torch.empty((R, 128), device=dev)
+    fn = kernels.launcher("probes", "take_rows")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (tab, idx, out)]
+    iptrs = [t.data_ptr() for t in (tab, idx, out)]
+    index = tab.device.index
+    idx64 = idx.long()
+
+    def checks_now():
+        ex._want("take_rows", tab, torch.float32, (S, ex.LANES))
+        ex._want("take_rows", idx, torch.int32, (R, ex.LANES))
+        return ex._on_cuda("take_rows", tab, idx)
+
+    def device_ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    def take_rows_before():
+        _checks_before(tab, idx)
+        t, i = ex._aligned16(tab), idx.contiguous()
+        o = torch.empty((R, 128), dtype=torch.float32, device=dev)
+        _launch_before(fn, [t, i, o], [S, R], dev)
+        return o
+
+    before = {
+        "checks": host_us(lambda: _checks_before(tab, idx)),
+        "output allocation": host_us(
+            lambda: torch.empty((R, 128), dtype=torch.float32, device=dev)),
+        "torch.cuda.device enter and exit": host_us(device_ctx),
+        "stream lookup (current_stream().cuda_stream)": host_us(
+            lambda: torch.cuda.current_stream().cuda_stream),
+        "c_void_p wraps (4)": host_us(
+            lambda: [ctypes.c_void_p(p) for p in (*iptrs, stream)]),
+        "ctypes call (c_void_p arguments)": host_us(
+            lambda: fn(*ptrs, S, R, ctypes.c_void_p(stream))),
+        "launch, whole": host_us(
+            lambda: _launch_before(fn, [tab, idx, out], [S, R], dev)),
+        "take_rows, whole": host_us(take_rows_before),
+    }
+    now = {
+        "checks": host_us(checks_now),
+        "output allocation": before["output allocation"],
+        "device test (_current_device)": host_us(
+            lambda: index != kernels._current_device()),
+        "stream lookup (_raw_stream)": host_us(
+            lambda: kernels._raw_stream(index)),
+        "pointers as ints (3)": host_us(
+            lambda: [t.data_ptr() for t in (tab, idx, out)]),
+        "ctypes call (int arguments)": host_us(
+            lambda: fn(*iptrs, S, R, stream)),
+        "launch, whole": host_us(lambda: kernels.launch(
+            "probes", "take_rows", [tab, idx, out], [S, R], dev)),
+        "take_rows, whole": host_us(lambda: ex.take_rows(tab, idx)),
+        "torch.gather, whole": host_us(
+            lambda: torch.gather(tab, 0, idx64)),
+    }
+    check(torch.equal(take_rows_before(), ex.take_rows(tab, idx)),
+          "T1 through the two call paths differs")
+    log(f"launch path of one T1 call (S {S}, R {R}; host us per call, least "
+        f"of 3 means of {LAUNCH_CALLS}): before: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in before.items())
+        + "; now: " + ", ".join(f"{k} {v:.2f}" for k, v in now.items()))
+    return {"shape": [S, R, 128], "calls": LAUNCH_CALLS,
+            "before_us": before, "now_us": now}
 
 
 def diagnostics_phases(dev, tri_fargs, tet_head):
@@ -1682,38 +1879,46 @@ def main() -> int:
     k2_err_s, _rec_s, _gin_s = compare_k2(
         inputs_s(), got_s, fargs_s[1], fargs_s[9], fargs_s[0].shape[0],
         st_s["keys"].sigma, "4096 tris, 256x256, B=2", seed=1)
-    k2_err_h, rec, gin = compare_k2(
+    k2_err_h, (rec, rec_ids), gin = compare_k2(
         inputs(), got, fargs[1], fargs[9], fargs[0].shape[0], keys.sigma,
         "headline", seed=0)
     state = got[2:]
     k2_call = lambda: tb.bwd_composite(*inputs()[:6], *state, gin, 1, H, W)
     k2_ms = cuda_ms(k2_call, 2, 10)
+    k2_dev_ms = profiled_device_ms(k2_call, "tri_bwd_kernel")
     k2_plain_ms = cuda_ms(
         lambda: tb.bwd_composite_plain(*inputs()[:6], *state, gin, 1, H, W),
         0, 1)
-    b_visits, b_active, b_live, b_rows = bwd_work(inputs(), state[2])
-    # tile ranges, the walked face rows, per pixel the ray (12), K1's state
-    # (12) and gin (20), and one record per live (slot, quarter): the
-    # kernel writes no other record (the rest of its buffer is zeroed
-    # before the launch and is not work the function needs)
-    b_bytes = (keys.starts.numel() * 8 + b_rows * FACE_ROW_BYTES
-               + n_pix * (12 + 12 + 20) + b_live * tb.REC_COLS * 4)
+    b_visits, b_active, b_live, b_rows, b_pairs = bwd_work(inputs(), state[2])
+    check(b_rows == rec.shape[0], f"K2 wrote {rec.shape[0]} rows, the tiles "
+          f"walk {b_rows} slots")
+    rec_bytes = rec.numel() * 4
+    # tile ranges and walked offsets, the walked face rows, per pixel the
+    # ray (12), K1's state (12) and gin (20); the output is the compacted
+    # buffer, written once: every walked (slot, quarter) row (zeros for
+    # those no pixel blended) and each row's slot id
+    b_bytes = (keys.starts.numel() * 12 + b_rows * FACE_ROW_BYTES
+               + n_pix * (12 + 12 + 20) + rec_bytes + b_rows * 4)
     k2_bound, k2_by, k2_ops_ms, k2_bytes_ms = bound(
         b_visits * OPS_PER_VISIT + b_active * OPS_PER_BWD_ACTIVE
         + b_live * OPS_PER_LIVE_SLOT, b_bytes)
-    log(f"K2 at headline: {k2_ms:.4f} ms; plain version {k2_plain_ms:.2f} "
-        f"ms. Work: {b_visits} visits, {b_active} active, {b_live} live "
-        f"(slot, quarter) pairs, {b_rows} face rows -> {k2_ops_ms:.4f} ms; "
-        f"{b_bytes} bytes -> {k2_bytes_ms:.4f} ms; bound {k2_bound:.4f} ms "
-        f"by {k2_by}")
+    S_slots = keys.slot_face.numel()
+    log(f"K2 at headline: {k2_ms:.4f} ms (device {k2_dev_ms:.4f}); plain "
+        f"version {k2_plain_ms:.2f} ms. Walked: {b_rows} of {S_slots} slots "
+        f"({b_rows * 4} record rows, {rec_bytes} bytes, against "
+        f"{S_slots * 4 * tb.REC_COLS * 4} for the full layout), {b_pairs} "
+        f"walked (slot, quarter) pairs, {b_live} live. Work: {b_visits} "
+        f"visits, {b_active} active -> {k2_ops_ms:.4f} ms; {b_bytes} bytes "
+        f"-> {k2_bytes_ms:.4f} ms; bound {k2_bound:.4f} ms by {k2_by}")
 
     # ---- seg_sum against plain, bit for bit, at both of the main path's
-    # shapes: the headline's record reduce and its vertex reduce
+    # shapes: the headline's record reduce (the compacted records) and its
+    # vertex reduce
     F = fargs[1].shape[0]
-    csr = rd.segment_csr(keys.slot_face, F, inner=4)
+    csr = rd.segment_csr(keys.slot_face[rec_ids], F, inner=4)
     vals = rec.reshape(-1, tb.REC_COLS)
     _gop, g_p, g_vc, g_vd, _gint = tb.records_to_faces(
-        rec, keys.slot_face, keys.sigma, inputs()[3], fargs[9])
+        rec, rec_ids, keys.slot_face, keys.sigma, inputs()[3], fargs[9])
     corners = rd.corner_rows(g_p, g_vc, g_vd)
     csr_v = rd.segment_csr(fargs[1], fargs[0].shape[0])
     ss_err = 0.0
@@ -1738,7 +1943,10 @@ def main() -> int:
     N, C = vals.shape
     log(f"seg_sum at the headline record reduce: {ss_ms:.4f} ms against "
         f"torch.segment_reduce {ss_lib_ms:.4f} ms in this run (faster: "
-        f"{ss_ms < ss_lib_ms}); plain {ss_plain_ms:.2f} ms")
+        f"{ss_ms < ss_lib_ms}); reads {N * C * 4} record bytes; plain "
+        f"{ss_plain_ms:.2f} ms. Vertex reduce: {tri_vtx['ms']:.4f} ms per "
+        f"call against torch.segment_reduce {tri_vtx['library_ms']:.4f} "
+        f"(no slower: {tri_vtx['ms'] <= tri_vtx['library_ms']})")
 
     # ---- the training path: TriRenderer with gradients at the headline
     leaves = leaves_of(user)
@@ -1784,17 +1992,18 @@ def main() -> int:
 
     ones_gin = tb.upstream_planes(torch.ones(1, 3, H, W, device=dev),
                                   torch.ones(1, 1, H, W, device=dev), bg)
-    rec1 = tb.bwd_composite(*inputs()[:6], *state, ones_gin, 1, H, W)
+    rec1, ids1 = tb.bwd_composite(*inputs()[:6], *state, ones_gin, 1, H, W)
     faces_t = fargs[1]
     fb_split = {
         "forward": cuda_ms(fwd_only, 2, 10),
         "K2": cuda_ms(lambda: tb.bwd_composite(*inputs()[:6], *state,
                                                 ones_gin, 1, H, W), 2, 10),
         "record reduce": cuda_ms(lambda: tb.records_to_faces(
-            rec1, keys.slot_face, keys.sigma, inputs()[3], fargs[9]), 2, 10),
+            rec1, ids1, keys.slot_face, keys.sigma, inputs()[3], fargs[9]),
+            2, 10),
     }
-    gf = tb.records_to_faces(rec1, keys.slot_face, keys.sigma, inputs()[3],
-                             fargs[9])
+    gf = tb.records_to_faces(rec1, ids1, keys.slot_face, keys.sigma,
+                             inputs()[3], fargs[9])
     fb_split["vertex reduce"] = cuda_ms(lambda: rd.faces_to_verts(
         faces_t, fargs[0].shape[0], gf[1], gf[2], gf[3]), 2, 10)
     fb_split["rest"] = fb_ms - sum(fb_split.values())
@@ -1882,6 +2091,7 @@ def main() -> int:
     k5_entry["ptxas"] = ptxas["tet_bwd_march"]
     answers, probe_launches = tools_main_path(dev)
     probe_entries = probe_kernel_phases(dev, answers, probe_launches)
+    split_us = launch_path_split(dev)
     tet_head["tri_user"] = user
     diag = diagnostics_phases(dev, fargs, tet_head)
 
@@ -1904,10 +2114,13 @@ def main() -> int:
          "replaces": "dmesh_renderer_tpu/ops/tri_binned.py:797",
          "launches": launches["tri_bwd_composite"],
          "max_abs_err": max(k2_err_s, k2_err_h),
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None,
+         "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
          "visits": b_visits, "active_visits": b_active,
-         "live_slot_quarters": b_live, "face_rows": b_rows},
+         "live_slot_quarters": b_live, "walked_slots": b_rows,
+         "walked_slot_quarters": b_pairs, "slots": S_slots,
+         "record_bytes": rec_bytes,
+         "tri_frame_host_syncs": diag["traces"]["tri"]["host_syncs"]},
         {**common, "name": "seg_sum",
          "source": "dmesh_renderer_tpu_torch/csrc/tri_bwd.cu",
          "replaces": "dmesh_renderer_tpu/ops/tri_binned.py:301 "
@@ -1930,7 +2143,7 @@ def main() -> int:
         "fwd_bwd_peak_mib": fb_peak / 2**20,
         "forward_no_grad_after_ms": fwd_nograd_ms, "train_step_ms": step_ms,
         "train_losses": losses, **tet_info, **tet_train_info,
-        "diagnostics": diag,
+        "diagnostics": diag, "launch_path_split_us": split_us,
         "experiments": {k: _jsonable(v) for k, v in answers.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

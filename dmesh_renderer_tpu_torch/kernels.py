@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "tri_fwd": {"tri_fwd_composite": [_P] * 8 + [_I] * 3 + [_P]},
-    "tri_bwd": {"tri_bwd_composite": [_P] * 11 + [_I] * 3 + [_P],
+    "tri_bwd": {"tri_bwd_composite": [_P] * 13 + [_I] * 3 + [_P],
                 "seg_sum": [_P] * 4 + [_I] * 3 + [_P]},
     "tet_fwd": {"tet_first_hit": [_P] * 8 + [_I] * 3 + [_P],
                 "tet_fwd_march": [_P] * 11 + [_I] * 4 + [_F, _P]},
@@ -47,6 +47,8 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# each launcher's ctypes function, resolved once: (library, launcher) -> fn
+_fns: dict[tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -119,16 +121,41 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def launcher(name: str, fn: str):
+    """The ctypes function of the launcher ``fn`` of ``csrc/<name>.cu``,
+    resolved once (the library built and loaded first if needed)."""
+    f = _fns.get((name, fn))
+    if f is None:
+        f = _fns[(name, fn)] = getattr(load(name), fn)
+    return f
+
+
+def _current_device() -> int:
+    return torch._C._cuda_getDevice()
+
+
+def _raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream, without building a
+    ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(name: str, fn: str, tensors, scalars, device) -> None:
     """Call the launcher ``fn`` of ``csrc/<name>.cu`` with the tensors'
     pointers, then the scalars (as its ``SIGNATURES`` entry types them),
     then ``device``'s current stream. Raises if the launch failed. The
-    caller keeps the tensors alive and contiguous."""
-    lib = load(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, fn)(
-            *[ctypes.c_void_p(t.data_ptr()) for t in tensors], *scalars,
-            ctypes.c_void_p(stream))
+    caller keeps the tensors alive and contiguous.
+
+    The per-call host work is kept small: the launcher is resolved once,
+    pointers and the stream handle go to ctypes as plain ints, and the
+    current device is switched only when it is not ``device`` already."""
+    f = launcher(name, fn)
+    index = device.index
+    if index is None:  # "cuda": the current device
+        index = _current_device()
+    elif index != _current_device():
+        with torch.cuda.device(index):
+            return launch(name, fn, tensors, scalars, device)
+    err = f(*[t.data_ptr() for t in tensors], *scalars, _raw_stream(index))
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err}")

@@ -6,13 +6,13 @@ and the tet renderer alike, go through this module. torch's CUDA ``index_add_``,
 from run to run; the renderer's gradients are bitwise deterministic, so
 they cannot use them.
 
-A ``SegmentCSR`` (built once per segment-id vector with a stable sort, a
-``bincount`` and a ``cumsum``) lists each segment's rows in their original
-order. ``seg_sum`` then adds each segment's rows sequentially in that order,
-starting from 0: on CUDA tensors the ``seg_sum`` kernel of csrc/tri_bwd.cu
-(a warp per group of segments, its lanes over the columns and, for narrow
-rows and long segments, over several rows, each lane with 4 or 8 rows in
-flight), on CPU tensors ``seg_sum_plain``, which does the same f32
+A ``SegmentCSR`` (built once per segment-id vector with a stable sort and
+a ``searchsorted`` of the segment bounds) lists each segment's rows in
+their original order. ``seg_sum`` then adds each segment's rows
+sequentially in that order, starting from 0: on CUDA tensors the
+``seg_sum`` kernel of csrc/tri_bwd.cu (a warp per group of segments, its
+lanes over the columns and, for narrow rows and long segments, over
+several rows, each lane with 4 or 8 rows in flight), on CPU tensors ``seg_sum_plain``, which does the same f32
 additions in the same order, so the two agree bit for bit.
 """
 
@@ -21,6 +21,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..kernels import launch
 
 
 class SegmentCSR(NamedTuple):
@@ -38,15 +40,16 @@ def segment_csr(seg_ids: torch.Tensor, n_segments: int,
     ``inner`` > 1 groups ``inner`` consecutive rows under one id without
     sorting ``inner`` times as many keys; the order is the one a stable
     sort of the expanded ids would give."""
-    ids = seg_ids.reshape(-1).long()
+    ids = seg_ids.reshape(-1)
     if ids.numel() * inner >= 2 ** 31:
         raise ValueError(f"segment_csr: {ids.numel() * inner} rows do not "
                          "fit int32 row ids")
-    order = torch.sort(ids, stable=True).indices.to(torch.int32)
-    counts = torch.bincount(ids, minlength=n_segments) * inner
-    offsets = torch.zeros(n_segments + 1, dtype=torch.int64,
-                          device=ids.device)
-    offsets[1:] = torch.cumsum(counts, 0)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    order = order.to(torch.int32)
+    # offsets[s] = the number of ids below s: no host read (a bincount
+    # reads the largest id on the host)
+    offsets = torch.searchsorted(sorted_ids, torch.arange(
+        n_segments + 1, dtype=ids.dtype, device=ids.device)) * inner
     if inner > 1:
         order = (order[:, None] * inner + torch.arange(
             inner, dtype=torch.int32, device=ids.device)).reshape(-1)
@@ -58,38 +61,37 @@ def _check(values: torch.Tensor, csr: SegmentCSR):
         raise TypeError(
             f"seg_sum: values must be a 2-D float32 tensor, got "
             f"{values.dtype} {tuple(values.shape)}")
-    if csr.order.dtype != torch.int32 or csr.offsets.dtype != torch.int64:
+    order, offsets = csr
+    if order.dtype != torch.int32 or offsets.dtype != torch.int64:
         raise TypeError("seg_sum: order must be int32 and offsets int64")
-    if csr.order.numel() != values.shape[0]:
+    if order.numel() != values.shape[0]:
         raise ValueError(
-            f"seg_sum: {csr.order.numel()} ordered rows for "
+            f"seg_sum: {order.numel()} ordered rows for "
             f"{values.shape[0]} value rows")
-    if csr.order.device != values.device or \
-            csr.offsets.device != values.device:
+    dev = values.device
+    if order.device != dev or offsets.device != dev:
         raise ValueError("seg_sum: all tensors must share a device")
+    return dev
 
 
 def seg_sum(values: torch.Tensor, csr: SegmentCSR) -> torch.Tensor:
     """[N, C] f32 -> [n_segments, C] f32, each segment's rows added in
     order from 0. Launches the kernel on CUDA tensors (and raises if it
     cannot); runs ``seg_sum_plain`` on CPU tensors."""
-    _check(values, csr)
-    if values.device.type == "cpu":
+    dev = _check(values, csr)
+    if dev.type == "cpu":
         return seg_sum_plain(values, csr)
-    if values.device.type != "cuda":
+    if dev.type != "cuda":
         raise ValueError(f"seg_sum: unsupported device {values.device}")
-    from ..kernels import launch
-
     n_seg = csr.offsets.numel() - 1
     N, C = values.shape
     vals = values.contiguous()
     if C % 2 == 0 and C <= 16 and vals.data_ptr() % 8:
         vals = vals.clone()  # narrow even rows are read as float2
-    order = csr.order.contiguous()
-    offsets = csr.offsets.contiguous()
-    out = torch.empty((n_seg, C), dtype=torch.float32, device=values.device)
-    launch("tri_bwd", "seg_sum", [vals, order, offsets, out], [n_seg, C, N],
-           values.device)
+    out = torch.empty((n_seg, C), dtype=torch.float32, device=dev)
+    launch("tri_bwd", "seg_sum",
+           [vals, csr.order.contiguous(), csr.offsets.contiguous(), out],
+           [n_seg, C, N], dev)
     seg_sum.launches += 1
     return out
 

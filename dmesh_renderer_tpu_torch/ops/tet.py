@@ -48,6 +48,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..kernels import launch
 from ..utils.config import BIN_TILE, DEFAULT_MAX_MARCH_STEPS, T_EPS, TILE_X
 from .binning import default_key_capacity
 from .geometry import (
@@ -300,8 +301,6 @@ def fwd_march(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_ids,
         return fwd_march_plain(*args, N, max_steps)
     if ray_d.device.type != "cuda":
         raise ValueError(f"fwd_march: unsupported device {ray_d.device}")
-    from ..kernels import launch
-
     tensors = [x.contiguous() for x in args]
     if tensors[2].data_ptr() % 16:
         tensors[2] = tensors[2].clone()  # the kernel reads zw as float4
@@ -656,8 +655,6 @@ def bwd_march(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int, tet_geo,
         return out
     if ray_d.device.type != "cuda":
         raise ValueError(f"bwd_march: unsupported device {ray_d.device}")
-    from ..kernels import launch
-
     tensors = [x.contiguous() for x in args]
     for j in (2, 6, 7, 8, 9):  # zw and the tables are read as 16-byte rows
         if tensors[j].data_ptr() % 16:

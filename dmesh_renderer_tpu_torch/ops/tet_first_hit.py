@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import launch
 from ..utils.config import BIN_TILE
 from .binning import emit_and_sort
 from .geometry import cross
@@ -87,8 +88,6 @@ def first_hit(starts, ends, slot_face, table, ray_d, B: int, H: int, W: int):
         return first_hit_plain(starts, ends, slot_face, table, ray_d, B, H, W)
     if ray_d.device.type != "cuda":
         raise ValueError(f"first_hit: unsupported device {ray_d.device}")
-    from ..kernels import launch
-
     tensors = [x.contiguous() for x in (starts, ends, slot_face, table,
                                         ray_d)]
     if tensors[3].data_ptr() % 16:

@@ -21,7 +21,10 @@ the sorted face tables, the rays and K1's state from the forward):
   tile, the reverse walk from the quarter's last contributor, with T
   rebuilt by division from prevT, suffix accumulators, the background term
   and the clamp + Moller-Trumbore chain, summed over the quarter's pixels
-  into one 22-column record per (slot, quarter)
+  into one 22-column record per (slot, quarter) of each tile's walked
+  prefix (``walked_slots``: the slots up to the tile's last contributor;
+  the records of later slots would be zero and are not written), the
+  prefixes packed tile after tile
   -> ``reduce_records``: segment sums (ops/reduce.py) to depth-sorted rows,
   back to (view, face) through ``sigma``, over views, and to the vertices.
 
@@ -39,6 +42,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..kernels import launch
 from ..utils.config import BIN_TILE, T_EPS
 from .binning import default_key_capacity, emit_and_sort
 from .geometry import (
@@ -142,8 +146,6 @@ def fwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d,
                                    face_i32, ray_d, B, H, W)
     if ray_d.device.type != "cuda":
         raise ValueError(f"fwd_composite: unsupported device {ray_d.device}")
-    from ..kernels import launch
-
     tensors = [x.contiguous() for x in (starts, ends, slot_face, face_f32,
                                         face_i32, ray_d)]
     out = torch.empty((B, 6, H, W), dtype=torch.float32, device=ray_d.device)
@@ -248,18 +250,43 @@ def _check_bwd_args(inputs, T, prevT, n_contrib, gin):
             raise ValueError("bwd_composite: all tensors must share a device")
 
 
+def walked_slots(starts, ends, n_contrib, B: int, H: int, W: int):
+    """Each tile's walked prefix and its place in the compacted records.
+
+    A tile's walk covers its list up to its last contributor: walked =
+    min(list length, the largest n_contrib of its 32x32 pixels). Every
+    later slot's records are zero, so ``bwd_composite`` writes only the
+    walked prefixes, tile after tile. Returns (offs [n_tiles + 1] int32,
+    the exclusive prefix sum of the walked counts, and their total Wk as a
+    Python int: the one value read on the host, which sizes the buffer)."""
+    gx = (W + TILE - 1) // TILE
+    gy = (H + TILE - 1) // TILE
+    nc = n_contrib
+    if gy * TILE != H or gx * TILE != W:
+        nc = torch.nn.functional.pad(nc, (0, gx * TILE - W, 0, gy * TILE - H))
+    tile_max = nc.reshape(B, gy, TILE, gx, TILE).amax(dim=(2, 4)).reshape(-1)
+    walked = torch.minimum(ends - starts, tile_max)
+    offs = walked.new_zeros(walked.numel() + 1)
+    torch.cumsum(walked, 0, out=offs[1:])
+    return offs, int(offs[-1])
+
+
 def bwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d, T,
                   prevT, n_contrib, gin, B: int, H: int, W: int):
-    """Per-slot gradient records of the composite (kernel K2).
+    """Gradient records of the composite's walked slots (kernel K2).
 
     The first nine arguments are ``fwd_composite``'s inputs; T, prevT and
     n_contrib [B, H, W] are its outputs; gin [B, 5, H, W] f32 holds per
-    pixel (dL/dC rgb, dL/dD, bg . dL/dC + dL/dD). Returns records
-    [S, 4, REC_COLS] f32: for slot s and quarter q (the 16x16 quarter
-    (q // 2, q % 2) of the slot's tile) the sums over the quarter's pixels
-    of dL/dalpha, dL/dp0..dp2 (9), the vertex-colour moments
-    sum i_k dL/dcolor_c (9, k-major) and the vertex-depth moments
-    sum i_k dL/ddepth (3). Slots no pixel of a quarter blended keep zeros.
+    pixel (dL/dC rgb, dL/dD, bg . dL/dC + dL/dD). Returns (records
+    [Wk, 4, REC_COLS] f32, slot_ids [Wk] int32). Row i holds the slot
+    ``slot_ids[i]`` of a tile's walked prefix (``walked_slots``; tiles in
+    order, each prefix in slot order, so ``slot_ids`` increases), and for
+    quarter q (the 16x16 quarter (q // 2, q % 2) of the slot's tile) the
+    sums over the quarter's pixels of dL/dalpha, dL/dp0..dp2 (9), the
+    vertex-colour moments sum i_k dL/dcolor_c (9, k-major) and the
+    vertex-depth moments sum i_k dL/ddepth (3). A walked slot that no pixel
+    of a quarter blended has zeros there. The slots past a tile's walked
+    prefix have no row: their records would be zero.
 
     On CUDA tensors this launches the kernel of csrc/tri_bwd.cu (and raises
     if it cannot); on CPU tensors it runs ``bwd_composite_plain``."""
@@ -271,17 +298,17 @@ def bwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d, T,
                                    B, H, W)
     if ray_d.device.type != "cuda":
         raise ValueError(f"bwd_composite: unsupported device {ray_d.device}")
-    from ..kernels import launch
-
     tensors = [x.contiguous() for x in (starts, ends, slot_face, face_f32,
                                         face_i32, ray_d, T, prevT, n_contrib,
                                         gin)]
-    rec = torch.zeros((slot_face.numel(), 4, REC_COLS), dtype=torch.float32,
-                      device=ray_d.device)
-    launch("tri_bwd", "tri_bwd_composite", tensors + [rec], [B, H, W],
-           ray_d.device)
+    offs, total = walked_slots(tensors[0], tensors[1], tensors[8], B, H, W)
+    dev = ray_d.device
+    rec = torch.empty((total, 4, REC_COLS), dtype=torch.float32, device=dev)
+    slot_ids = torch.empty((total,), dtype=torch.int32, device=dev)
+    launch("tri_bwd", "tri_bwd_composite", tensors + [offs, rec, slot_ids],
+           [B, H, W], dev)
     bwd_composite.launches += 1
-    return rec
+    return rec, slot_ids
 
 
 bwd_composite.launches = 0
@@ -318,7 +345,8 @@ def bwd_composite_plain(starts, ends, slot_face, face_f32, face_i32, ray_d,
     arithmetic and the same sum order, vectorised over the quarters and
     sequential over the slot position, walked from the back. Each step
     takes the quarters whose walk reaches it: positions below
-    min(list length, the quarter's largest n_contrib)."""
+    min(list length, the quarter's largest n_contrib). The records go to
+    the same compacted rows as the kernel's; the rest stay zero."""
     dev = ray_d.device
     gx = (W + TILE - 1) // TILE
     gy = (H + TILE - 1) // TILE
@@ -345,20 +373,24 @@ def bwd_composite_plain(starts, ends, slot_face, face_f32, face_i32, ray_d,
     start = starts.long()[tile]
     count = (ends - starts).long()[tile]
     n_eff = torch.minimum(count, nc.max(dim=1).values)
+    offs, total = walked_slots(starts, ends, n_contrib, B, H, W)
+    comp = offs.long()[tile]  # the quarter's tile's first compacted row
 
     zeros = lambda: torch.zeros(NQ, QUAD * QUAD, dtype=torch.float32,
                                 device=dev)
     st = {"T": fpT.clone(), "first": torch.ones_like(nc, dtype=torch.bool)}
     for k in ("la", "lr", "lg", "lb", "ld", "ar", "ag", "ab", "ad"):
         st[k] = zeros()
-    rec = torch.zeros((slot_face.numel(), 4, REC_COLS), dtype=torch.float32,
-                      device=dev)
+    rec = torch.zeros((total, 4, REC_COLS), dtype=torch.float32, device=dev)
+    walked = (offs[1:] - offs[:-1]).long()
+    slot_ids = (torch.arange(total, device=dev) - torch.repeat_interleave(
+        offs[:-1].long() - starts.long(), walked, output_size=total)
+    ).to(torch.int32)
 
     n_max = int(n_eff.max()) if NQ else 0
     for pos in range(n_max - 1, -1, -1):
         L = torch.nonzero(n_eff > pos).squeeze(1)
-        slot = start[L] + pos
-        row = slot_face[slot].long()
+        row = slot_face[start[L] + pos].long()
         f = face_f32[row][:, :, None]  # [nL, 27, 1]: per-face scalars
         e = face_i32[row].long()
         s = {k: v[L] for k, v in st.items()}
@@ -368,9 +400,9 @@ def bwd_composite_plain(starts, ends, slot_face, face_f32, face_i32, ray_d,
         for k, v in new.items():
             st[k][L] = v
         sums = block_sum(vals)  # [nL, 20]
-        rec[slot, quarter[L]] = torch.where(
+        rec[comp[L] + pos, quarter[L]] = torch.where(
             live[:, None], _record_from_sums(sums, f[..., 0]), 0.0)
-    return rec
+    return rec, slot_ids
 
 
 def _bwd_pixel_math(f, e, px, py, d, fT, fpT, before_nc, g, s):
@@ -512,38 +544,45 @@ def upstream_planes(dL_dcolor, dL_ddepth, bg):
                         gdep, bg_dot], dim=1)
 
 
-def reduce_records(rec, slot_face, sigma, face_f32_sorted, faces,
+def reduce_records(rec, slot_ids, slot_face, sigma, face_f32_sorted, faces,
                    faces_intense, n_verts: int):
-    """Per-slot records -> the five gradients.
+    """Compacted records -> the five gradients.
 
-    ``rec`` [S, 4, 22] from ``bwd_composite``; ``slot_face`` and ``sigma``
-    the forward's ``BinnedKeys`` fields; ``face_f32_sorted`` the
-    depth-sorted face table the kernels read; faces [F, 3]; faces_intense
-    [B, F]. ``records_to_faces``, then ``faces_to_verts``. Returns
-    (g_verts [P, 3], g_vcolor [P, 3], g_fopacity [F], g_vdepth [B, P],
-    g_fintense [B, F])."""
+    ``rec`` [Wk, 4, 22] and ``slot_ids`` [Wk] from ``bwd_composite``;
+    ``slot_face`` and ``sigma`` the forward's ``BinnedKeys`` fields;
+    ``face_f32_sorted`` the depth-sorted face table the kernels read;
+    faces [F, 3]; faces_intense [B, F]. ``records_to_faces``, then
+    ``faces_to_verts``. Returns (g_verts [P, 3], g_vcolor [P, 3],
+    g_fopacity [F], g_vdepth [B, P], g_fintense [B, F])."""
     g_fopacity, g_p, g_vc, g_vd, g_fintense = records_to_faces(
-        rec, slot_face, sigma, face_f32_sorted, faces_intense)
+        rec, slot_ids, slot_face, sigma, face_f32_sorted, faces_intense)
     g_verts, g_vcolor, g_vdepth = faces_to_verts(faces, n_verts, g_p, g_vc,
                                                  g_vd)
     return g_verts, g_vcolor, g_fopacity, g_vdepth, g_fintense
 
 
-def records_to_faces(rec, slot_face, sigma, face_f32_sorted,
+def records_to_faces(rec, slot_ids, slot_face, sigma, face_f32_sorted,
                      faces_intense):
     """The record reduce: records summed per depth-sorted row in slot
-    order (segment sum), un-permuted to (view, face) through ``sigma``, and
-    summed over views where the parameter is shared.
+    order (segment sum over the Wk * 4 rows, keyed by
+    ``slot_face[slot_ids]``), un-permuted to (view, face) through
+    ``sigma``, and summed over views where the parameter is shared.
+
+    The slots that have no row hold zero records, and every sum starts at
+    +0.0, so it never is -0.0 and adding +-0.0 leaves it as it is: the
+    result is bitwise the reduce of the full [S, 4, 22] layout, with
+    ``slot_ids`` = arange(S).
     Returns (g_fopacity [F], g_p [F, 3, 3], g_vc [F, 3, 3] per face corner,
     g_vd [B, F, 3], g_fintense [B, F])."""
     B, F = faces_intense.shape
-    csr = segment_csr(slot_face, B * F, inner=4)
+    csr = segment_csr(slot_face[slot_ids], B * F, inner=4)
     g = seg_sum(rec.reshape(-1, REC_COLS), csr)  # [B*F, 22], sorted rows
-    # dL/dintensity = sum_k,c colour[k, c] * (sum_p i_k dL/dcolor_c)
-    c = face_f32_sorted[:, _C0:_C0 + 9]
-    gint = c[:, 0] * g[:, _G_VC]
+    # dL/dintensity = sum_k,c colour[k, c] * (sum_p i_k dL/dcolor_c), the
+    # nine products added in order
+    prod = face_f32_sorted[:, _C0:_C0 + 9] * g[:, _G_VC:_G_VC + 9]
+    gint = prod[:, 0]
     for j in range(1, 9):
-        gint = gint + c[:, j] * g[:, _G_VC + j]
+        gint = gint + prod[:, j]
     g = torch.cat([g, gint[:, None]], dim=1)
     face_g = torch.empty_like(g).index_copy_(0, sigma, g) \
         .reshape(B, F, REC_COLS + 1)
@@ -618,11 +657,12 @@ class _RenderTriBinned(torch.autograd.Function):
         (starts, ends, slot_face, ff, fi, ray_d, T, pT, nc, sigma, faces,
          faces_intense, bg) = ctx.saved_tensors
         B, H, W = T.shape
-        rec = bwd_composite(starts, ends, slot_face, ff, fi, ray_d, T, pT,
-                            nc, upstream_planes(dL_dcolor, dL_ddepth, bg),
-                            B, H, W)
+        rec, slot_ids = bwd_composite(
+            starts, ends, slot_face, ff, fi, ray_d, T, pT, nc,
+            upstream_planes(dL_dcolor, dL_ddepth, bg), B, H, W)
         g_verts, g_vcolor, g_fop, g_vdepth, g_fint = reduce_records(
-            rec, slot_face, sigma, ff, faces, faces_intense, ctx.n_verts)
+            rec, slot_ids, slot_face, sigma, ff, faces, faces_intense,
+            ctx.n_verts)
         return (g_verts, None, g_vcolor, g_fop, None, None, None, None,
                 g_vdepth, g_fint, None, None, None, None, None)
 

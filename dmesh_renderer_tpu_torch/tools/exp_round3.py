@@ -88,17 +88,20 @@ def _on_cuda(name, *tensors):
     """True on CUDA tensors, False on CPU ones; raises otherwise or when the
     tensors do not share a device."""
     dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: all tensors must share a device")
-    if dev.type not in ("cpu", "cuda"):
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must share a device")
+    if dev.type == "cuda":
+        return True
+    if dev.type != "cpu":
         raise ValueError(f"{name}: unsupported device {dev}")
-    return dev.type == "cuda"
+    return False
 
 
 def _want(name, t, dtype, shape):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
 
@@ -127,7 +130,7 @@ def take_rows(tab, idx):
     if not _on_cuda("take_rows", tab, idx):
         return take_rows_plain(tab, idx)
     tab, idx = _aligned16(tab), idx.contiguous()
-    out = torch.empty((R, LANES), dtype=torch.float32, device=tab.device)
+    out = torch.empty_like(idx, dtype=torch.float32)  # [R, 128]
     launch("probes", "take_rows", [tab, idx, out], [S, R], tab.device)
     take_rows.launches += 1
     return out

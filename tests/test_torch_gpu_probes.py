@@ -41,6 +41,30 @@ def test_take_rows_kernel_matches_plain(S, R, cuda):
     assert torch.equal(got, ex.take_rows_plain(tab, idx))
 
 
+def test_take_rows_lean_call_path(cuda):
+    """T1 through the lean call path: the launcher is resolved once, and
+    the raw stream handle is the current stream's, so a call on a side
+    stream runs there and is ordered with that stream's work."""
+    from dmesh_renderer_tpu_torch import kernels
+
+    rng = np.random.RandomState(5)
+    tab = torch.from_numpy(rng.rand(48_000, 128).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(
+        rng.randint(0, 48_000, (5_000, 128)).astype(np.int32)).to(cuda)
+    want = ex.take_rows_plain(tab, idx)
+    fn = kernels.launcher("probes", "take_rows")
+    assert kernels.launcher("probes", "take_rows") is fn
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert kernels._raw_stream(cuda.index or 0) == side.cuda_stream
+        tab2 = tab * 1.0  # work the kernel must follow on the side stream
+        got = ex.take_rows(tab2, idx)
+    side.synchronize()
+    assert torch.equal(got, want)
+    assert kernels._fns[("probes", "take_rows")] is fn
+
+
 @pytest.mark.parametrize("G", [1, 32, 41])
 def test_roll_merge_kernel_matches_plain(G, cuda):
     buf = ex.e3_buffer(G * 128)

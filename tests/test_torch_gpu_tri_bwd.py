@@ -7,10 +7,11 @@ no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu_tri_bwd.py
 
-Tolerances: K2's records within 1e-6 relative of its plain version (the
-same f32 operations and the same sum order; both built without FMA
-contraction); seg_sum bit for bit; every stage of the binned path and its
-five gradients bit for bit equal to the CPU port's, since each stage does
+Tolerances: K2's compacted records within 1e-6 relative of its plain
+version (the same f32 operations and the same sum order; both built
+without FMA contraction), their slot ids equal; seg_sum bit for bit;
+every stage of the binned path and its five gradients bit for bit equal
+to the CPU port's, since each stage does
 the same f32 operations in the same order on both devices (ops/rays.py
 divides by a tensor and takes its root in f64 for this: CUDA divides by a
 Python scalar through its reciprocal, and torch's CPU sqrt is not
@@ -44,8 +45,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _soup_args(n_tris, n_views, seed, bg=(0.15, 0.25, 0.35)):
-    soup = scenes.random_triangle_soup(n_tris, seed=seed)
+def _soup_args(n_tris, n_views, seed, bg=(0.15, 0.25, 0.35), spread=1.0):
+    soup = scenes.random_triangle_soup(n_tris, seed=seed, spread=spread)
     mv, proj = scenes.ring_cameras(n_views, radius=3.0)
     vd, fi = scenes.soup_view_attrs(soup, n_views, seed=seed + 1)
     mv_t = np.swapaxes(mv, 1, 2).copy()
@@ -71,20 +72,70 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(CASES))
+def _stack_args(opacity, n=8):
+    """n large triangles, each over the whole frame of a camera on the z
+    axis: at opacity 0.1 every pixel blends its whole list."""
+    tri = np.array([[-3, -3, 0], [9, -3, 0], [-3, 9, 0]], np.float32)
+    verts = np.concatenate([tri + [0, 0, -0.3 * k] for k in range(n)])
+    faces = np.arange(3 * n, dtype=np.int32).reshape(n, 3)
+    rng = np.random.RandomState(5)
+    mv = scenes.look_at([0.0, 0.0, 3.0], [0, 0, 0], [0, 1, 0])[None]
+    proj = scenes.perspective(45.0, 72 / 40, 0.1, 10.0)[None]
+    mv_t = np.swapaxes(mv, 1, 2).astype(np.float32).copy()
+    proj_t = np.swapaxes(proj, 1, 2).astype(np.float32).copy()
+    return (verts, faces, rng.uniform(0, 1, (3 * n, 3)).astype(np.float32),
+            np.full(n, opacity, np.float32), mv_t, proj_t,
+            np.linalg.inv(mv_t), np.linalg.inv(proj_t),
+            rng.uniform(-1, 1, (1, 3 * n)).astype(np.float32),
+            rng.uniform(0.5, 1, (1, n)).astype(np.float32),
+            np.array([0.2, 0.3, 0.1], np.float32))
+
+
+def poison_allocator(rows, dev):
+    """Free NaN-filled blocks of the sizes of K2's record buffer and slot
+    ids, so that the caching allocator hands them to the next call: a row
+    the kernel does not write then shows."""
+    for n in (rows * 4 * ttb.REC_COLS, rows):
+        torch.full((n,), float("nan"), device=dev)
+
+
+# K2's edge cases: (args, H, W) of a frame whose tiles mostly hold no face
+# (so they walk 0 slots), and of a stack where walked = list length
+K2_EDGES = {
+    "empty_tiles": lambda: (_soup_args(6, 1, 3, spread=0.25), 136, 104),
+    "whole_stack": lambda: (_stack_args(0.1), 40, 72),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(K2_EDGES))
 def test_k2_matches_plain(case, cuda):
-    n, b, seed, h, w = CASES[case]
-    t = tri_inputs_from_numpy(*_soup_args(n, b, seed), device=cuda)
-    _c, _d, _keys, inputs, state = ttb._forward(*t, h, w, 8192, None)
+    """K2's compacted records and slot ids against its plain version."""
+    if case in K2_EDGES:
+        args, h, w = K2_EDGES[case]()
+        b, seed = args[4].shape[0], 3
+    else:
+        n, b, seed, h, w = CASES[case]
+        args = _soup_args(n, b, seed)
+    t = tri_inputs_from_numpy(*args, device=cuda)
+    _c, _d, keys, inputs, state = ttb._forward(*t, h, w, 8192, None)
     g = torch.Generator().manual_seed(seed)
     gin = torch.randn((b, 5, h, w), generator=g).to(cuda)
+    offs, total = ttb.walked_slots(keys.starts, keys.ends, state[2], b, h, w)
+    poison_allocator(total, cuda)
     before = ttb.bwd_composite.launches
-    got = ttb.bwd_composite(*inputs[:6], *state, gin, *inputs[6:])
+    got, ids = ttb.bwd_composite(*inputs[:6], *state, gin, *inputs[6:])
     torch.cuda.synchronize()
     assert ttb.bwd_composite.launches == before + 1
-    want = ttb.bwd_composite_plain(*inputs[:6], *state, gin, *inputs[6:])
+    want, want_ids = ttb.bwd_composite_plain(*inputs[:6], *state, gin,
+                                             *inputs[6:])
     assert bool((want != 0).any())
+    assert got.shape == want.shape and torch.equal(ids, want_ids)
     assert _rel(got, want.cpu()) <= 1e-6
+    assert total == got.shape[0]
+    if case == "empty_tiles":
+        assert bool((offs[1:] == offs[:-1]).any())
+    if case == "whole_stack":
+        assert total == keys.slot_face.numel()
 
 
 def test_seg_sum_bitwise(cuda):
@@ -199,15 +250,15 @@ def test_stages_match_cpu(case, cuda):
         t = tri_inputs_from_numpy(*args, device=dev)
         c, d, keys, inputs, state = ttb._forward(*t, h, w, 8192, None)
         gin = ttb.upstream_planes(dc.to(dev), dd.to(dev), t[10])
-        rec = ttb.bwd_composite(*inputs[:6], *state, gin, b, h, w)
-        grads = ttb.reduce_records(rec, keys.slot_face, keys.sigma,
+        rec, ids = ttb.bwd_composite(*inputs[:6], *state, gin, b, h, w)
+        grads = ttb.reduce_records(rec, ids, keys.slot_face, keys.sigma,
                                    inputs[3], t[1], t[9], t[0].shape[0])
         names = ("starts", "ends", "slot_face", "face_f32", "face_i32",
                  "ray_d", "T", "prevT", "n_contrib", "color", "depth",
-                 "sigma", "gin", "records", "g_verts", "g_vcolor", "g_fop",
-                 "g_vdepth", "g_fint")
+                 "sigma", "gin", "records", "slot_ids", "g_verts",
+                 "g_vcolor", "g_fop", "g_vdepth", "g_fint")
         out[dev.type] = dict(zip(names, (*inputs[:6], *state, c, d,
-                                         keys.sigma, gin, rec, *grads)))
+                                         keys.sigma, gin, rec, ids, *grads)))
     differ = [k for k, v in out["cpu"].items()
               if not torch.equal(out["cuda"][k].cpu(), v)]
     assert not differ, differ
