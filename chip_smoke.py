@@ -7,11 +7,18 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 
 1. print the card (name, count, nvidia-smi name and power limit);
 2. build the CUDA kernels of dmesh_renderer_tpu_torch/csrc (one nvcc per
-   source, all at once) and print the build time and ptxas usage, K5's and
-   seg_sum's registers and shared memory on a line of their own;
+   source, all at once) and print the build time and ptxas usage, K1's,
+   K4's, K5's and seg_sum's registers and shared memory on a line of their
+   own;
 3. hold the forward compositing kernel (K1, ``fwd_composite``) against its
    plain torch version on the card, at 4096 triangles, 256x256, B=2 and at
-   the headline scene (100k triangles, 800x800, B=1, seed 0);
+   the headline scene (100k triangles, 800x800, B=1, seed 0); time it
+   (CUDA events, and its device time under the profiler), work out its
+   bound from the run's counts, and count what its earlier shape (a block
+   per 16x16 quarter, 256-slot rounds) and its current one (a block per
+   32x32 tile, double-buffered 32-slot rounds, each lane walking only its
+   pixel's covered slots) do with this run's data: the face rows each
+   stages, and the blend's lane occupancy;
 4. drive the serving path, ``TriRenderer`` on the card at the headline
    scene, with the launch counts set to 0 just before and read just after;
    check its outputs, time it (2 warm-up, 10 timed runs, CUDA events) and
@@ -46,7 +53,9 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
     ``fwd_march``) against their plain versions at a small scene
     (``freudenthal_grid(6, 0.14, 21)``, 256x256, B=2, ray seed 17) and at
     the tet headline (``freudenthal_grid(20, 0.15, 2)``: 98,400 faces,
-    48,000 tets, 800x800, B=1); work out their bounds from the run's counts;
+    48,000 tets, 800x800, B=1); time them (CUDA events, and their device
+    times under the profiler) and work out their bounds from the run's
+    counts;
 13. drive the tet serving path, ``TetRenderer`` on the card at the tet
     headline, counts set to 0 just before and read just after (K3 and K4
     once each); check the pair count (321,998, no overflow) and the
@@ -169,19 +178,19 @@ JAX_CPU_BLENDS = 5_370_194
 TET_TOL = 1e-6  # K3/K4 against plain: the same f32 ops in the same order
 # f32 operations: a K3 (pixel, slot) visit (depth window 2, Moller-Trumbore
 # 33, hit tests 6); a K4 blend (colour 21, weight 1, depth 9, log T 2, exp
-# 1, accumulators 8, termination 2) and a K4 walk step (4 slots x (normal
-# 27, Moller-Trumbore 51, selection 5))
+# 1, accumulators 8, termination 2); a walk step that rebuilds the normals
+# (T3, T4: 4 slots x (normal 27, Moller-Trumbore 51, selection 5)) and one
+# that reads them from tet_nrm (K4, K5: 4 slots x (the normal's dot 5,
+# Moller-Trumbore 51, selection 5))
 OPS_PER_FH_VISIT = 41
 OPS_PER_BLEND = 44
 OPS_PER_WALK = 4 * (27 + 51 + 5)
+OPS_PER_NRM_WALK = 4 * (5 + 51 + 5)
 FH_ROW_BYTES = 16 * 4 + 4  # first-hit table row and its slot_face entry
 # f32 operations of a K5 visit: barycentric 2, colour 18, depth 9, log T 1,
 # exp 1, the four suffix accumulators 16, dL/dalpha 12 and its background
-# term 7, the weight 2, the nine colour moments 12, termination 2; a K5
-# walk step does K4's but reads the normals: 4 slots x (the normal's dot 5,
-# Moller-Trumbore 51, selection 5)
+# term 7, the weight 2, the nine colour moments 12, termination 2
 OPS_PER_BWD_VISIT = 82
-OPS_PER_BWD_WALK = 4 * (5 + 51 + 5)
 # per ray with records, what K5 reads: ray 12, zw 16, start face/tet and
 # first face 12, the 11 float rows 44, its slot offset 8; per ray its record
 # count 4 and mismatch flag 1; per record the key 4 and 10 values 40
@@ -443,9 +452,20 @@ def _slot_chunks(inputs):
 
 
 def needed_work(inputs, got):
-    """(visits, hits) K1's run needs: per pixel, the slots of its tile up
-    to the one that finished it (all of them if none did), and how many of
-    those cover the pixel."""
+    """(visits, hits, shapes) of K1's run. visits and hits: per pixel, the
+    slots of its tile up to the one that finished it (all of them if none
+    did), and how many of those cover the pixel. shapes: the face rows
+    that K1's earlier shape (a 256-thread block per 16x16 quarter,
+    256-slot rounds) and its current one (a 1024-thread block per tile,
+    32-slot rounds with the next one prefetched) stage in all, and the
+    blend's lane occupancy (covered visits over 32 x the warp-steps of the
+    blend) of three ways to walk: the earlier shape's 16x2-pixel warps,
+    which step through every slot that a lane still walking covers; the
+    current 8x4-pixel warps, each lane stepping only through its own
+    covered slots of a round (the warp steps as often as its busiest
+    lane); and the same warps with the round's covered pairs packed across
+    lanes, 32 at a time (a variant that was built and measured slower:
+    pairs past a pixel's exit in the round are packed too)."""
     from dmesh_renderer_tpu_torch.utils.config import T_EPS
 
     starts, ends, _sf, _ff, _fi, _rd, B, H, W = inputs
@@ -459,10 +479,45 @@ def needed_work(inputs, got):
                        count[:, None])
     stop = torch.where(inside, stop, 0)  # [NT, 1024]
     visits = int(stop.sum())
-    hits = 0
+    # rows staged: a quarter block walks its rounds until its pixels are
+    # done; a tile block also stages the round after its last
+    q_rounds = (stop.reshape(-1, 2, 16, 2, 16).amax(dim=(2, 4)) + 255) // 256
+    rows_quarter = int(torch.minimum(count[:, None, None], q_rounds * 256)
+                       .sum())
+    n_rounds = (count + 31) // 32
+    staged = torch.minimum(n_rounds, (stop.amax(dim=1) + 31) // 32 + 1)
+    rows_tile = int(torch.minimum(count, staged * 32).sum())
+    # per (tile, round, pixel): its covered slots up to its exit, and the
+    # covered slots of the pixels not done at the round's start
+    first_round = torch.cumsum(n_rounds, 0) - n_rounds
+    R = int(n_rounds.sum())
+    own = torch.zeros((R, 1024), dtype=torch.int32, device=count.device)
+    packed = torch.zeros((R, 1024), dtype=torch.int32, device=count.device)
+    hits = quarter_steps = 0
     for _sl, t, cov, pos in _slot_chunks(inputs):
-        hits += int((cov & (pos[:, None] < stop[t])).sum())
-    return visits, hits
+        act = cov & (pos[:, None] < stop[t])
+        hits += int(act.sum())
+        quarter_steps += int(act.reshape(-1, 2, 8, 2, 2, 16)
+                             .any(dim=5).any(dim=3).sum())
+        r = pos // 32
+        own.index_add_(0, first_round[t] + r, act.int())
+        packed.index_add_(0, first_round[t] + r,
+                          (cov & (stop[t] > (r * 32)[:, None])).int())
+    warps = lambda x: x.reshape(R, 8, 4, 4, 8).permute(0, 1, 3, 2, 4) \
+        .reshape(R, 32, 32)  # [round, 8x4-pixel warp, lane]
+    own_steps = int(warps(own).amax(dim=2).sum())
+    packed_steps = int(((warps(packed).sum(dim=2) + 31) // 32).sum())
+    steps = {"quarter_blocks_16x2_warps": quarter_steps,
+             "tile_blocks_own_covered_slots": own_steps,
+             "tile_blocks_packed_across_lanes": packed_steps}
+    shapes = {
+        "rows_staged": {"quarter_blocks_256_slot_rounds": rows_quarter,
+                        "tile_blocks_32_slot_rounds": rows_tile},
+        "blend_lane_occupancy": {k: hits / max(1, 32 * v)
+                                 for k, v in steps.items()},
+        "blend_warp_steps": steps,
+    }
+    return visits, hits, shapes
 
 
 def bwd_work(inputs, nc):
@@ -662,8 +717,8 @@ def tet_stages(fargs, h, w, seed=0):
     def march_inputs():
         m = st["march"]
         return (st["rd"].reshape(M, 3), cam_o, st["zw"], st["ff"],
-                st["first_tet"], st["tuv"], m["tet_geo"], m["tet_ids"],
-                m["shade"], N)
+                st["first_tet"], st["tuv"], m["tet_geo"], m["tet_nrm"],
+                m["tet_ids"], m["shade"], h, w)
 
     def k4():
         st["out"] = pt.fwd_march(*march_inputs())
@@ -771,20 +826,34 @@ def tet_phases(dev):
     walks = blends - n_active  # every blend but an active ray's last walks
     m = st["march"]
     # per ray the inputs (ray 12, zw 16, first face/tet 8, t/u/v 12) and
-    # outputs (40); the tet and shade tables read once
-    k4_bytes = (n_pix * (12 + 16 + 8 + 12 + 40) + m["tet_geo"].numel() * 4
+    # outputs (40); the tables read once: the 36 geometry columns of
+    # tet_geo that the walk reads (not the signs, which tet_nrm carries),
+    # tet_nrm, tet_ids and shade
+    k4_bytes = (n_pix * (12 + 16 + 8 + 12 + 40)
+                + m["tet_geo"].shape[0] * 36 * 4 + m["tet_nrm"].numel() * 4
                 + m["tet_ids"].numel() * 4 + m["shade"].numel() * 4)
     k4_bound, k4_by, k4_ops_ms, k4_bytes_ms = bound(
-        blends * OPS_PER_BLEND + walks * OPS_PER_WALK, k4_bytes)
-    log(f"K3 at tet headline: {k3_ms:.4f} ms; plain {k3_plain_ms:.2f} ms. "
+        blends * OPS_PER_BLEND + walks * OPS_PER_NRM_WALK, k4_bytes)
+    # the bound of the same walks with the normals rebuilt per step (the
+    # work of a K4 that does not read tet_nrm), for comparison
+    k4_rebuild_ms = bound(blends * OPS_PER_BLEND + walks * OPS_PER_WALK,
+                          k4_bytes)[0]
+    k3_dev_ms = profiled_device_ms(lambda: pfh.first_hit(*fh_in()),
+                                   "tet_first_hit_kernel")
+    k4_dev_ms = profiled_device_ms(lambda: pt.fwd_march(*m_in()),
+                                   "tet_fwd_march_kernel")
+    log(f"K3 at tet headline: {k3_ms:.4f} ms (device {k3_dev_ms:.4f}); "
+        f"plain {k3_plain_ms:.2f} ms. "
         f"Work: {n_pairs} pairs, {walked} slots staged, {need_slots} slots "
         f"needed, {n_visits} (pixel, face) tests -> {k3_ops_ms:.4f} ms; "
         f"{k3_bytes} bytes -> {k3_bytes_ms:.4f} ms; bound {k3_bound:.4f} ms "
         f"by {k3_by}")
-    log(f"K4 at tet headline: {k4_ms:.4f} ms; plain {k4_plain_ms:.2f} ms. "
-        f"Work: {blends} blends, {walks} walk steps -> {k4_ops_ms:.4f} ms; "
+    log(f"K4 at tet headline: {k4_ms:.4f} ms (device {k4_dev_ms:.4f}); "
+        f"plain {k4_plain_ms:.2f} ms. Work: {blends} blends, {walks} walk "
+        f"steps (normals read from tet_nrm) -> {k4_ops_ms:.4f} ms; "
         f"{k4_bytes} bytes -> {k4_bytes_ms:.4f} ms; bound {k4_bound:.4f} ms "
-        f"by {k4_by}")
+        f"by {k4_by} (with the normals rebuilt per step: "
+        f"{k4_rebuild_ms:.4f} ms)")
 
     # ---- the tet serving path: TetRenderer on the card at the headline
     settings = port.TetRenderSettings(H, W, bg)
@@ -923,7 +992,8 @@ def tet_phases(dev):
          "replaces": "dmesh_renderer_tpu/ops/tet_first_hit.py:51",
          "launches": launches["tet_first_hit"],
          "max_abs_err": max(err_s, err_h), "ms": k3_ms,
-         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         "device_ms": k3_dev_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound, "bound_by": k3_by,
          "bit_equal": bool(eq_s[0] and eq_h[0]), "pairs": n_pairs,
          "slots_staged": walked, "slots_needed": need_slots,
          "visits": n_visits, "hit_pixels": hit_pixels},
@@ -931,7 +1001,9 @@ def tet_phases(dev):
          "replaces": "dmesh_renderer_tpu/ops/tet.py:503",
          "launches": launches["tet_fwd_march"],
          "max_abs_err": max(err_s, err_h), "ms": k4_ms,
-         "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_by,
+         "device_ms": k4_dev_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound, "bound_by": k4_by,
+         "bound_rebuilt_normals_ms": k4_rebuild_ms,
          "bit_equal": bool(eq_s[1] and eq_h[1]), "blends": blends,
          "walk_steps": walks, "active": n_act, "max_walk": max_walk},
     ]
@@ -1059,7 +1131,7 @@ def tet_train_phases(dev, head):
     k5_bytes = (M * (4 + 1) + n_rays * K5_RAY_BYTES + n_rec * K5_REC_BYTES
                 + m_tab + k5_in[1].numel() * 4)
     k5_bound, k5_by, k5_ops_ms, k5_bytes_ms = bound(
-        n_rec * OPS_PER_BWD_VISIT + walks * OPS_PER_BWD_WALK, k5_bytes)
+        n_rec * OPS_PER_BWD_VISIT + walks * OPS_PER_NRM_WALK, k5_bytes)
     log(f"K5 at tet headline: {k5_ms:.4f} ms; plain {k5_plain_ms:.2f} ms. "
         f"Work: {n_rec} records over {n_rays} rays, {walks} walk steps -> "
         f"{k5_ops_ms:.4f} ms; {k5_bytes} bytes -> {k5_bytes_ms:.4f} ms; "
@@ -1764,9 +1836,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {src}: {line.strip()}")
-    ptxas = {k: ptxas_usage(logs, k) for k in ("seg_sum", "tet_bwd_march")}
-    log(f"ptxas: seg_sum {ptxas['seg_sum']}; K5 tet_bwd_march "
-        f"{ptxas['tet_bwd_march']}")
+    ptxas = {k: ptxas_usage(logs, k) for k in (
+        "tri_fwd_kernel", "tet_fwd_march", "seg_sum", "tet_bwd_march")}
+    log(f"ptxas: K1 tri_fwd_kernel {ptxas['tri_fwd_kernel']}; K4 "
+        f"tet_fwd_march {ptxas['tet_fwd_march']}; seg_sum "
+        f"{ptxas['seg_sum']}; K5 tet_bwd_march {ptxas['tet_bwd_march']}")
 
     # ---- K1 against plain: 4096 tris at 256^2, B=2; then the headline
     user_s, fargs_s, _bg = scene_tensors(**SMALL, dev=dev)
@@ -1782,15 +1856,18 @@ def main() -> int:
         fn()
     err_head, got = compare_kernel(inputs(), "headline")
     k1_ms = cuda_ms(lambda: tb.fwd_composite(*inputs()), 2, 10)
+    k1_dev_ms = profiled_device_ms(lambda: tb.fwd_composite(*inputs()),
+                                   "tri_fwd_kernel")
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
     plain_ms = cuda_ms(lambda: tb.fwd_composite_plain(*inputs()), 0, 2)
     plain_peak = torch.cuda.max_memory_allocated() - base_mem
-    log(f"K1 at headline: {k1_ms:.4f} ms; plain version {plain_ms:.2f} ms "
-        f"(peak extra memory {plain_peak / 2**20:.1f} MiB)")
+    log(f"K1 at headline: {k1_ms:.4f} ms (device {k1_dev_ms:.4f}); plain "
+        f"version {plain_ms:.2f} ms (peak extra memory "
+        f"{plain_peak / 2**20:.1f} MiB)")
 
     # ---- the bound of K1 on this run's data
-    visits, hits = needed_work(inputs(), got)
+    visits, hits, k1_shapes = needed_work(inputs(), got)
     keys = st["keys"]
     n_pix = H * W * HEADLINE["n_views"]
     nbytes = (keys.starts.numel() * 8 + keys.slot_face.numel() * 4
@@ -1801,6 +1878,17 @@ def main() -> int:
     log(f"K1 work: {visits} visits, {hits} blended-candidate visits -> "
         f"{ops_ms:.4f} ms; {nbytes} bytes -> {bytes_ms:.4f} ms; bound "
         f"{bound_ms:.4f} ms by {bound_by}")
+    rs, occ = k1_shapes["rows_staged"], k1_shapes["blend_lane_occupancy"]
+    log(f"K1 shapes at the headline ({keys.slot_face.numel()} slots in "
+        f"{keys.starts.numel()} tile lists): face rows staged, quarter "
+        f"blocks with 256-slot rounds {rs['quarter_blocks_256_slot_rounds']}"
+        f", tile blocks with 32-slot rounds "
+        f"{rs['tile_blocks_32_slot_rounds']}; the blend's lane occupancy, "
+        f"16x2-pixel warps {occ['quarter_blocks_16x2_warps']:.4f}, 8x4 "
+        f"warps over each lane's own covered slots "
+        f"{occ['tile_blocks_own_covered_slots']:.4f}, pairs packed across "
+        f"lanes {occ['tile_blocks_packed_across_lanes']:.4f} (warp-steps "
+        f"{k1_shapes['blend_warp_steps']})")
 
     # ---- the serving path: TriRenderer on the card at the headline scene
     settings = port.TriRenderSettings(H, W, bg)
@@ -2089,6 +2177,7 @@ def main() -> int:
     tet_kernels, tet_info, tet_head = tet_phases(dev)
     k5_entry, tet_train_info = tet_train_phases(dev, tet_head)
     k5_entry["ptxas"] = ptxas["tet_bwd_march"]
+    tet_kernels[1]["ptxas"] = ptxas["tet_fwd_march"]
     answers, probe_launches = tools_main_path(dev)
     probe_entries = probe_kernel_phases(dev, answers, probe_launches)
     split_us = launch_path_split(dev)
@@ -2103,8 +2192,10 @@ def main() -> int:
          "launches": launches["tri_fwd_composite"],
          "launches_serving_path": fwd_launches,
          "max_abs_err": max(err_small, err_head),
-         "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": None,
+         "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+         "bit_equal": bool(err_small == 0.0 and err_head == 0.0),
+         **k1_shapes, "ptxas": ptxas["tri_fwd_kernel"],
          "forward_ms": fwd_ms, "forward_split_ms": split,
          "forward_peak_mib": fwd_peak / 2**20,
          "plain_peak_mib": plain_peak / 2**20,

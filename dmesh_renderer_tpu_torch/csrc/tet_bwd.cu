@@ -19,7 +19,7 @@
 //   - forms dL/dalpha, with the background term and its alpha == 1 case, and
 //     the nine colour moments (inten * prevT * alpha) * bary_v * dL/dC_ch;
 //   - stops at the first face, or when the walk leaves the mesh, or else
-//     walks to the previous face (tet_walk.cuh, direction -1).
+//     walks to the previous face (tet_walk.cuh's walk_nrm, direction -1).
 //
 // Records. A ray with n records (its forward n_contrib; 0 for a ray that is
 // inactive or blended nothing) owns the slots [off, off + n) of the record
@@ -43,7 +43,8 @@
 //     runs with consecutive threads on consecutive float2s. Written straight
 //     from each lane, the 11 stores of a visit touched 32 far-apart sectors
 //     each (a ray's slots lie ~9 records from its neighbour's);
-//   - the walk reads each slot's outward unit normal from the per-tet table
+//   - the walk (tet_walk.cuh's walk_nrm<-1>, K4's step with the direction
+//     flipped) reads each slot's outward unit normal from the per-tet table
 //     tet_nrm (ops/tet.py::march_tables, sign * n-hat, the same bits as the
 //     normal rebuilt per step) instead of a cross product, a square root and
 //     three divides per slot, and reads every table row as float4s;
@@ -70,9 +71,9 @@ using tet::clamp_w;
 using tet::kSH;
 using tet::kTG;
 using tet::kTI;
+using tet::kTN;
 
 constexpr int kRec = 10;       // record values: 9 colour moments, dL/dalpha
-constexpr int kNrm = 12;       // tet_nrm row: the 4 slots' outward normals
 constexpr int kThreads = 128;  // threads per block, 4 warps
 constexpr int kStage = 4;      // visits staged per flush
 constexpr int kRun = kStage * kRec;  // floats of one lane's staged records
@@ -85,96 +86,6 @@ constexpr int kRunPad = kRun + 2;    // padded, even: float2 rows, lanes
 enum { kT, kU, kV, kPLT, kGR, kGG, kGB, kGD, kBGD, kFT, kFPT, kRF };
 // per-ray int inputs, rows of ray_i [4, M]
 enum { kStartFace, kStartTet, kFirstFace, kNRec };
-
-// One backward connectivity step (tet_walk.cuh's walk_step<-1>) that reads
-// the outward unit normals from the tet's tet_nrm row n4: the same exit
-// test, selection and errors. On success writes the next face, its tet and
-// the hit's t, u, v and returns false; on an invariant violation returns
-// true and writes nothing.
-__device__ __forceinline__ bool walk_back(const float4* __restrict__ g4,
-                                          const float4* __restrict__ n4,
-                                          const int4* __restrict__ i4, int cf,
-                                          float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float& t, float& u, float& v,
-                                          int& next_face, int& next_tet) {
-  float g[36], nr[kNrm];
-  int ids[kTI];
-#pragma unroll
-  for (int q = 0; q < 9; ++q) {
-    const float4 a = g4[q];
-    g[4 * q] = a.x;
-    g[4 * q + 1] = a.y;
-    g[4 * q + 2] = a.z;
-    g[4 * q + 3] = a.w;
-  }
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    const float4 a = n4[q];
-    nr[4 * q] = a.x;
-    nr[4 * q + 1] = a.y;
-    nr[4 * q + 2] = a.z;
-    nr[4 * q + 3] = a.w;
-  }
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int4 a = i4[q];
-    ids[4 * q] = a.x;
-    ids[4 * q + 1] = a.y;
-    ids[4 * q + 2] = a.z;
-    ids[4 * q + 3] = a.w;
-  }
-  int n_other = 0, n_exit = 0;
-  float d_entry = 0.0f;
-  float st = 0.0f, su = 0.0f, sv = 0.0f;
-  int sf = -1, stt = -1;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float p0x = g[9 * j + 0], p0y = g[9 * j + 1], p0z = g[9 * j + 2];
-    const float e1x = g[9 * j + 3], e1y = g[9 * j + 4], e1z = g[9 * j + 5];
-    const float e2x = g[9 * j + 6], e2y = g[9 * j + 7], e2z = g[9 * j + 8];
-    const int tfj = ids[j], nbj = ids[4 + j];
-    // sign * (n-hat . d) of walk_slots, exactly: the sign is +-1
-    const float outd =
-        nr[3 * j] * dx + nr[3 * j + 1] * dy + nr[3 * j + 2] * dz;
-
-    const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
-    const float pvx = dy * e2z - dz * e2y;
-    const float pvy = dz * e2x - dx * e2z;
-    const float pvz = dx * e2y - dy * e2x;
-    const float qvx = tvy * e1z - tvz * e1y;
-    const float qvy = tvz * e1x - tvx * e1z;
-    const float qvz = tvx * e1y - tvy * e1x;
-    const float denom = pvx * e1x + pvy * e1y + pvz * e1z;
-    const bool nd = denom != 0.0f;
-    const float inv = 1.0f / (nd ? denom : 1.0f);
-    const float tj = (qvx * e2x + qvy * e2y + qvz * e2z) * inv;
-    const float uj = (pvx * tvx + pvy * tvy + pvz * tvz) * inv;
-    const float vj = (qvx * dx + qvy * dy + qvz * dz) * inv;
-    const bool hit =
-        nd && tj >= 0.0f && uj >= 0.0f && vj >= 0.0f && uj + vj <= 1.0f;
-
-    const bool is_entry = tfj == cf;
-    n_other += is_entry ? 0 : 1;
-    d_entry = d_entry + (is_entry ? outd : 0.0f);
-    const bool ex = !is_entry && hit && outd < 0.0f;
-    n_exit += ex ? 1 : 0;
-    if (j == 0 || ex) {
-      st = tj;
-      su = uj;
-      sv = vj;
-      sf = tfj;
-      stt = nbj;
-    }
-  }
-  if (n_other != 3 || d_entry <= 0.0f || n_exit != 1) return true;
-  t = st;
-  u = su;
-  v = sv;
-  next_face = sf;
-  next_tet = stt;
-  return false;
-}
 
 __global__ void __launch_bounds__(kThreads)
 tet_bwd_march_kernel(const float* __restrict__ ray_d,
@@ -295,13 +206,14 @@ tet_bwd_march_kernel(const float* __restrict__ ray_d,
         matched = k + 1 == n_rec;
         walking = false;
       } else if (ct == -1 ||
-                 walk_back(reinterpret_cast<const float4*>(
-                               tet_geo + (size_t)ct * kTG),
-                           reinterpret_cast<const float4*>(
-                               tet_nrm + (size_t)ct * kNrm),
-                           reinterpret_cast<const int4*>(
-                               tet_ids + (size_t)ct * kTI),
-                           cf, ox, oy, oz, dx, dy, dz, t, i1, i2, cf, ct)) {
+                 tet::walk_nrm<-1>(
+                     reinterpret_cast<const float4*>(tet_geo +
+                                                     (size_t)ct * kTG),
+                     reinterpret_cast<const float4*>(tet_nrm +
+                                                     (size_t)ct * kTN),
+                     reinterpret_cast<const int4*>(tet_ids +
+                                                   (size_t)ct * kTI),
+                     cf, ox, oy, oz, dx, dy, dz, t, i1, i2, cf, ct)) {
         walking = false;
       }
     }

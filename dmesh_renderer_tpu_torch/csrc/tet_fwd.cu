@@ -9,13 +9,13 @@
 // hit face's maximum depth; that test comes before the hit test of the same
 // face.
 //
-// Shape of K3. As the tri forward kernel: one block of 16x16 threads per
-// 16x16 quarter of a tile, one pixel per thread. The tile's list is read in
-// rounds of 256 slots: each thread stages one slot's 16-float face row
-// (looked up through slot_face) in shared memory, then every thread walks
-// the round in order. The block leaves at a round boundary once every pixel
-// is done (__syncthreads_and); per-pixel results do not depend on when it
-// leaves. Each block writes the number of slots it staged (`walked`).
+// Shape of K3: one block of 16x16 threads per 16x16 quarter of a tile, one
+// pixel per thread. The tile's list is read in rounds of 256 slots: each
+// thread stages one slot's 16-float face row (looked up through slot_face)
+// in shared memory, then every thread walks the round in order. The block
+// leaves at a round boundary once every pixel is done (__syncthreads_and);
+// per-pixel results do not depend on when it leaves. Each block writes the
+// number of slots it staged (`walked`).
 //
 // K4 replaces dmesh_renderer_tpu/ops/tet.py::_fwd_march_kernel (with
 // _connectivity_step). On the TPU each call is one lockstep step over all
@@ -25,25 +25,34 @@
 // three corner colours at (u, v) times the view's intensity, depth from the
 // projective z/w of the ray at t), updates log-transmittance with one expf,
 // terminates when T < 1e-4 or the walk has left the mesh, and otherwise
-// walks to the exit face of the current tet: the strict hit among the three
-// other faces whose outward normal has a positive dot with the ray (the last
-// such in slot order; slot 0 when none; tet_walk.cuh). The reference's three
+// walks to the exit face of the current tet (tet_walk.cuh's walk_nrm<1>,
+// the step K5 takes with the direction flipped). The reference's three
 // invariant violations (not three other faces, an entry face that does not
-// oppose the ray, not exactly one exit) end the walk with the pixel inactive.
-// A thread that is done retires: there is no lockstep, compaction or march
-// log.
+// oppose the ray, not exactly one exit) end the walk with the pixel
+// inactive. A thread that is done retires: there is no lockstep, compaction
+// or march log.
 //
-// What a K4 step reads: the tet's 40-float geometry row (p0, e1, e2 of the
-// four face slots and the four outward signs) and 8-int id row (face and
-// neighbour tet of each slot), and the current face's 12-float shade row
-// (view * F + face). At the headline scene the tables are 9.2 MB and 4.7 MB,
-// which stay in the card's 50 MB L2.
+// What bounds K4 on the H100. A step reads the tet's geometry (144 of its
+// 160 bytes), normal (48) and id (32) rows and the face's shade row (48).
+// The tables (16 MB at the tet headline) stay in the 50 MB L2, so the card's
+// floor is to read them and each ray's inputs once and write its outputs
+// (72 MB), and to do ~44 f32 operations per blend and 4 x (5 + 51 + 5) per
+// walk step: about 0.021 ms either way at the headline's 5.4 M blends and
+// 4.8 M steps (chip_smoke.py counts both). A step that rebuilds the four
+// outward unit normals (four correctly rounded square roots, twelve IEEE
+// divides) and reads the rows with 60 scalar loads ran at 15 % of that
+// bound (0.188 ms). So the normals come from march_tables' tet_nrm (sign *
+// n-hat, the same bits), a step's only divisions are its four
+// Moller-Trumbore reciprocals, and every row is read as float4s / int4s (17
+// vector loads per step). Those loads, 272 bytes per step, are L1 and L2
+// traffic: the lanes of a warp are an 8x4-pixel patch (a block two such
+// warps side by side), whose rays walk through mostly the same tets, so
+// more of their rows are L1 hits than for 32 pixels of one image row;
+// neighbouring rays also walk for about as long.
 //
 // Numerics. Built with --fmad=false and IEEE division and square root, so
 // that every f32 operation rounds as the separate elementwise torch ops of
-// the plain versions (first_hit_plain, fwd_march_plain) do. The unit
-// normal is recomputed per step with the precompute's operation order
-// (cross, sqrt of the sum of squares, max with 1e-4, divide). All literals
+// the plain versions (first_hit_plain, fwd_march_plain) do. All literals
 // are f32.
 
 #include <cuda_runtime.h>
@@ -58,12 +67,17 @@ using tet::clamp_w;
 using tet::kSH;
 using tet::kTG;
 using tet::kTI;
+using tet::kTN;
 
 constexpr int kTile = 32;
 constexpr int kQuad = 16;
 constexpr int kRound = kQuad * kQuad;
 constexpr float kBig = 3.0e38f;
 constexpr float kTEps = 1e-4f;
+// K4: one ray per thread, a block per 16x4-pixel patch of a view (two
+// warps of 8x4 pixels)
+constexpr int kRayTileW = 16, kRayTileH = 4;
+constexpr int kMarchThreads = kRayTileW * kRayTileH;
 
 // first-hit table columns ([B*F, 16] f32, depth-sorted rows)
 constexpr int kFH = 16;
@@ -161,7 +175,7 @@ tet_first_hit_kernel(const int* __restrict__ starts,
   face[pix] = bface;
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kMarchThreads)
 tet_fwd_march_kernel(const float* __restrict__ ray_d,
                      const float* __restrict__ cam_o,
                      const float* __restrict__ zw,
@@ -169,14 +183,19 @@ tet_fwd_march_kernel(const float* __restrict__ ray_d,
                      const int* __restrict__ first_tet,
                      const float* __restrict__ tuv,
                      const float* __restrict__ tet_geo,
+                     const float* __restrict__ tet_nrm,
                      const int* __restrict__ tet_ids,
                      const float* __restrict__ shade,
                      float* __restrict__ out_f, int* __restrict__ out_i,
-                     int M, int N, int F, int max_steps,
+                     int M, int H, int W, int F, int max_steps,
                      float log_t_floor) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
-  const int view = i / N;
+  // a block is a 16x4-pixel patch of one view, each warp 8x4 pixels
+  const int lane = threadIdx.x & 31;
+  const int x = blockIdx.x * kRayTileW + (threadIdx.x >> 5) * 8 + (lane & 7);
+  const int y = blockIdx.y * kRayTileH + (lane >> 3);
+  if (x >= W || y >= H) return;
+  const int view = blockIdx.z;
+  const int i = (view * H + y) * W + x;
   const float ox = cam_o[view * 3 + 0];
   const float oy = cam_o[view * 3 + 1];
   const float oz = cam_o[view * 3 + 2];
@@ -194,13 +213,16 @@ tet_fwd_march_kernel(const float* __restrict__ ray_d,
   bool done = cf == -1 || ct == -1;
 
   for (int step = 0; step < max_steps && !done; ++step) {
-    // --- blend the current face ---
-    const float* sh = shade + ((size_t)view * F + cf) * kSH;
-    const float alpha = sh[9], l1a = sh[10], inten = sh[11];
+    // --- blend the current face: its shade row as three float4s (9 corner
+    // colours, alpha, log(1 - alpha), intensity) ---
+    const float4* sh = reinterpret_cast<const float4*>(
+        shade + ((size_t)view * F + cf) * kSH);
+    const float4 s0 = sh[0], s1 = sh[1], s2 = sh[2];
+    const float alpha = s2.y, l1a = s2.z, inten = s2.w;
     const float w = T_cur * alpha;
-    const float cr = (sh[0] + (sh[3] - sh[0]) * u + (sh[6] - sh[0]) * v) * inten;
-    const float cg = (sh[1] + (sh[4] - sh[1]) * u + (sh[7] - sh[1]) * v) * inten;
-    const float cb = (sh[2] + (sh[5] - sh[2]) * u + (sh[8] - sh[2]) * v) * inten;
+    const float cr = (s0.x + (s0.w - s0.x) * u + (s1.z - s0.x) * v) * inten;
+    const float cg = (s0.y + (s1.x - s0.y) * u + (s1.w - s0.y) * v) * inten;
+    const float cb = (s0.z + (s1.y - s0.z) * u + (s2.x - s0.z) * v) * inten;
     const float dep = (poz + t * pdz) / clamp_w(pow_ + t * pdw);
     prev_log_T = log_T;
     log_T = alpha < 1.0f ? log_T + l1a : log_t_floor;
@@ -221,8 +243,11 @@ tet_fwd_march_kernel(const float* __restrict__ ray_d,
 
     // --- walk to the exit face of tet ct; an invariant violation leaves
     // the pixel inactive ---
-    if (tet::walk_step<1>(tet_geo + (size_t)ct * kTG, tet_ids + (size_t)ct * kTI,
-                          cf, ox, oy, oz, dx, dy, dz, t, u, v, cf, ct))
+    if (tet::walk_nrm<1>(
+            reinterpret_cast<const float4*>(tet_geo + (size_t)ct * kTG),
+            reinterpret_cast<const float4*>(tet_nrm + (size_t)ct * kTN),
+            reinterpret_cast<const int4*>(tet_ids + (size_t)ct * kTI), cf,
+            ox, oy, oz, dx, dy, dz, t, u, v, cf, ct))
       break;
   }
 
@@ -260,24 +285,29 @@ extern "C" int tet_first_hit(const void* starts, const void* ends,
   return (int)cudaGetLastError();
 }
 
-// Launch K4 on `stream` over M = B * N rays; allocates nothing and does not
-// synchronise. Outputs: out_f [6, M] f32 (C rgb, D, log T, the log T before
-// the last blend), out_i [4, M] int32 (last face, last tet, n_contrib,
-// active). Returns the launch's cudaGetLastError().
+// Launch K4 on `stream` over M = B * H * W rays (view-major, each view's
+// pixels row-major); allocates nothing and does not synchronise. Outputs:
+// out_f [6, M] f32 (C rgb, D, log T, the log T before the last blend),
+// out_i [4, M] int32 (last face, last tet, n_contrib, active). zw and the
+// tables tet_geo [T, 40], tet_nrm [T, 12], tet_ids [T, 8] and shade
+// [B*F, 12] are read as 16-byte rows and must be 16-byte aligned. Returns
+// the launch's cudaGetLastError().
 extern "C" int tet_fwd_march(const void* ray_d, const void* cam_o,
                              const void* zw, const void* first_face,
                              const void* first_tet, const void* tuv,
-                             const void* tet_geo, const void* tet_ids,
-                             const void* shade, void* out_f, void* out_i,
-                             int M, int N, int F, int max_steps,
-                             float log_t_floor, void* stream) {
-  if (M <= 0) return (int)cudaSuccess;
-  const int threads = 128;
-  tet_fwd_march_kernel<<<(M + threads - 1) / threads, threads, 0,
-                         (cudaStream_t)stream>>>(
+                             const void* tet_geo, const void* tet_nrm,
+                             const void* tet_ids, const void* shade,
+                             void* out_f, void* out_i, int B, int H, int W,
+                             int F, int max_steps, float log_t_floor,
+                             void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  const dim3 grid((W + kRayTileW - 1) / kRayTileW,
+                  (H + kRayTileH - 1) / kRayTileH, B);
+  tet_fwd_march_kernel<<<grid, kMarchThreads, 0, (cudaStream_t)stream>>>(
       (const float*)ray_d, (const float*)cam_o, (const float*)zw,
       (const int*)first_face, (const int*)first_tet, (const float*)tuv,
-      (const float*)tet_geo, (const int*)tet_ids, (const float*)shade,
-      (float*)out_f, (int*)out_i, M, N, F, max_steps, log_t_floor);
+      (const float*)tet_geo, (const float*)tet_nrm, (const int*)tet_ids,
+      (const float*)shade, (float*)out_f, (int*)out_i, B * H * W, H, W, F,
+      max_steps, log_t_floor);
   return (int)cudaGetLastError();
 }

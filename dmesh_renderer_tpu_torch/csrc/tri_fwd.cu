@@ -9,27 +9,52 @@
 // colour x intensity and vertex depth, and blend front to back until the
 // transmittance drops below 1e-4.
 //
-// Shape. One block of 16x16 threads per 16x16 quarter of a 32x32 tile, one
-// pixel per thread. The four quarters of a tile all walk the tile's whole
-// list (coverage is per pixel, so the result does not depend on the
-// quarter). The list is read in rounds of 256 slots: each thread loads one
-// slot's face row (36 words, looked up through slot_face) into shared
-// memory, then every thread walks the round in order. The block exits once
-// every pixel is done (__syncthreads_count). Pixels past the image edge
-// start done and write nothing.
+// What bounds it on the H100. The work a frame needs is small: at the tri
+// headline (100k triangles, 800x800) 18.7 M (pixel, slot) coverage tests of
+// ~16 integer operations, of which 6.2 M cover the pixel and add ~69 f32
+// operations, and 43 MB that must cross device memory once (face rows,
+// rays, outputs): 0.011 ms of operations, 0.013 ms of bytes (chip_smoke.py
+// computes both from the run's counts). A kernel with one 256-thread block
+// per 16x16 quarter of a tile, rows staged in rounds of 256 slots by one
+// thread per row, and a warp that runs the whole intersection and blend
+// whenever any of its lanes covers the slot took 0.148 ms: each quarter
+// staged the tile's rows again, every round staged 256 rows while a pixel
+// needs ~29 slots, the row loads touched 32 rows per warp instruction and
+// nothing overlapped their latency, and a third of the visits cover, so
+// most of the blend's issue went to idle lanes.
 //
-// What bounds it. The card's floor for this work is close to even between
-// bytes and operations: each face row, ray and output crosses device memory
-// once, and each (pixel, slot) visit costs ~16 integer operations for the
-// coverage test plus ~70 f32 operations where the face covers the pixel
-// (chip_smoke.py computes both bounds from the run's own counts). Neither
-// is what holds this version: each visit is a serial, dependent chain per
-// pixel, pixels of one warp diverge on coverage and early exit, and the
-// four quarter-blocks of a tile each load the tile's face rows. The design
-// answers only the first-order costs: face rows are staged once per round
-// in shared memory (no device-memory reads inside the walk), and a block
-// leaves as soon as all its pixels are done. Batching faces per warp,
-// sharing rows across the quarters and splitting long lists are later work.
+// Shape. One block of 1024 threads per 32x32 tile, one pixel per thread;
+// each warp is an 8x4-pixel patch. The tile's list is staged once per block,
+// in rounds of kRound = 32 slots, double-buffered: while the block walks
+// round r, the 4-byte cp.async copies of round r + 1 are in flight. A row
+// (27 f32 then 9 int32, looked up through slot_face) is copied by 36
+// consecutive threads, one word each, so each warp's loads are coalesced
+// along a row. Per round each warp
+//
+//   1. packs the round's covered (slot, pixel) pairs into a 32x32 bit
+//      matrix: lane j tests slot j against the warp's 32 pixels, stepping
+//      its three edge functions from pixel to pixel (uint32 wrapping
+//      arithmetic is exact modulo 2^32, so s + 16 a has the bits of the
+//      direct product), ~6 integer operations per test instead of ~16 and
+//      ten row loads; pixels already done get no pairs;
+//   2. transposes the matrix across the warp (five __shfl_xor_sync stages),
+//      so that each lane holds its own pixel's covered slots;
+//   3. and each lane walks only those, in slot order: intersection, clamp,
+//      interpolation and blend, with the T < 1e-4 exit.
+//
+// So a warp steps once per covered slot of its busiest pixel in the round,
+// not once per slot that any pixel covers. Packing the pairs across lanes
+// instead (32 pairs computed at a time, then each lane blending its own)
+// was built and measured slower: the blend is a per-pixel chain that must
+// stay in slot order, so the exchange of results through shared memory cost
+// more than the lanes it filled, and pairs past a pixel's exit were
+// computed for nothing.
+//
+// A warp whose pixels are all done skips its rounds; the block stops
+// staging once all its pixels are done (__syncthreads_and). Pixels past the
+// image edge start done and write nothing. Each pixel blends the same
+// faces, in the same order, with the same f32 operations as before, so the
+// outputs and n_contrib keep their bits.
 //
 // Numerics. Built with --fmad=false so that no a*b+c is contracted into an
 // FMA: every f32 operation rounds as the separate elementwise torch ops of
@@ -43,42 +68,122 @@
 
 namespace {
 
-constexpr int kTile = 32;       // binning tile side (coverage-rect granularity)
-constexpr int kQuad = 16;       // block side: a quarter of a tile
-constexpr int kRound = kQuad * kQuad;  // slots per shared-memory round
-constexpr int kNF = 27;         // f32 face-table columns
-constexpr int kNI = 9;          // int32 edge-coefficient columns
+constexpr int kTile = 32;     // binning tile side (coverage-rect granularity)
+constexpr int kThreads = kTile * kTile;  // one thread per pixel of a tile
+constexpr int kRound = 32;    // slots per staged round (one mask bit each)
+constexpr int kNF = 27;       // f32 face-table columns
+constexpr int kNI = 9;        // int32 edge-coefficient columns
+constexpr int kRow = kNF + kNI;        // words of a staged row
+constexpr int kRowPad = kRow + 1;      // odd stride: lanes on distinct rows
+                                       // read distinct banks
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTEps = 1e-4f;
 
 // f32 face-table columns
 constexpr int kTV = 0, kE1 = 3, kE2 = 6, kQV = 9, kC0 = 12, kD0 = 21;
 constexpr int kAlpha = 24, kInten = 25, kNondeg = 26;
 
-__device__ __forceinline__ bool edge_neg(int a, int b, int c, uint32_t px,
-                                         uint32_t py) {
-  uint32_t s = (uint32_t)a * px + (uint32_t)b * py + (uint32_t)c;
-  return (int32_t)s < 0;
+// The covered pixels of one slot for a warp's 8x4 patch, bit ly * 8 + lx
+// for the pixel (x0 + lx, y0 + ly): the edge coefficients e (A1 A2 A3 B1
+// B2 B3 C1 C2 C3) at the 16x16-subpixel centres, stepped by 16 A per
+// pixel and 16 B per row. A pixel is covered when all three edge values
+// are negative as int32, that is, when the AND of the three has its sign
+// bit set.
+__device__ __forceinline__ unsigned patch_cover(const int* __restrict__ e,
+                                                uint32_t px0, uint32_t py0) {
+  uint32_t row[3], dx[3], dy[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    row[i] = (uint32_t)e[i] * px0 + (uint32_t)e[3 + i] * py0 +
+             (uint32_t)e[6 + i];
+    dx[i] = (uint32_t)e[i] * 16u;
+    dy[i] = (uint32_t)e[3 + i] * 16u;
+  }
+  unsigned m = 0;
+#pragma unroll
+  for (int ly = 0; ly < 4; ++ly) {
+    uint32_t s0 = row[0], s1 = row[1], s2 = row[2];
+#pragma unroll
+    for (int lx = 0; lx < 8; ++lx) {
+      m |= ((s0 & s1 & s2) >> 31) << (ly * 8 + lx);
+      s0 += dx[0];
+      s1 += dx[1];
+      s2 += dx[2];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) row[i] += dy[i];
+  }
+  return m;
 }
 
-__global__ void __launch_bounds__(kRound)
+// Transpose the warp's 32x32 bit matrix: lane r holds row r on entry (bit
+// c set for column c); on return lane c holds column c (bit r set for row
+// r). Five stages, each swapping the off-diagonal blocks of size j.
+__device__ __forceinline__ unsigned transpose32(unsigned a, int lane) {
+  const unsigned kLow[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu,
+                            0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int j = 16 >> k;
+    const unsigned lo = kLow[k];  // the columns c with (c & j) == 0
+    const unsigned o = __shfl_xor_sync(0xffffffffu, a, j);
+    a = (lane & j) ? (a & ~lo) | ((o & ~lo) >> j) : (a & lo) | ((o & lo) << j);
+  }
+  return a;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Start the copies of the n rows of slots [r0, r0 + n) into buf: thread k
+// copies word k % kRow of row k / kRow.
+__device__ __forceinline__ void stage_round(
+    float* __restrict__ buf, const int* __restrict__ slot_face,
+    const float* __restrict__ face_f32, const int* __restrict__ face_i32,
+    int r0, int n) {
+  for (int k = threadIdx.x; k < n * kRow; k += kThreads) {
+    const int s = k / kRow;
+    const int c = k - s * kRow;
+    const size_t row = (size_t)slot_face[r0 + s];
+    const void* src = c < kNF ? (const void*)(face_f32 + row * kNF + c)
+                              : (const void*)(face_i32 + row * kNI + c - kNF);
+    cp_async4(buf + s * kRowPad + c, src);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 tri_fwd_kernel(const int* __restrict__ starts, const int* __restrict__ ends,
                const int* __restrict__ slot_face,
                const float* __restrict__ face_f32,
                const int* __restrict__ face_i32,
                const float* __restrict__ ray_d, float* __restrict__ out,
                int* __restrict__ n_contrib, int H, int W, int gx, int gy) {
-  __shared__ float sf[kRound][kNF];
-  __shared__ int si[kRound][kNI];
+  __shared__ float rows[2 * kRound * kRowPad];  // two rounds' face rows
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
   const int b = blockIdx.z;
-  const int x = blockIdx.x * kQuad + threadIdx.x;
-  const int y = blockIdx.y * kQuad + threadIdx.y;
-  const int tid = threadIdx.y * kQuad + threadIdx.x;
-  const int tile = (b * gy + (blockIdx.y * kQuad) / kTile) * gx +
-                   (blockIdx.x * kQuad) / kTile;
+  const int x0 = blockIdx.x * kTile + (warp & 3) * 8;  // the warp's patch
+  const int y0 = blockIdx.y * kTile + (warp >> 2) * 4;
+  const int x = x0 + (lane & 7);
+  const int y = y0 + (lane >> 3);
+  const int tile = (b * gy + blockIdx.y) * gx + blockIdx.x;
   const bool inside = x < W && y < H;
   const int start = starts[tile];
   const int end = ends[tile];
+  const int n_rounds = (end - start + kRound - 1) / kRound;
 
   const size_t pix = ((size_t)b * H + y) * W + x;
   float dx = 0.0f, dy = 0.0f, dz = 0.0f;
@@ -87,42 +192,56 @@ tri_fwd_kernel(const int* __restrict__ starts, const int* __restrict__ ends,
     dy = ray_d[pix * 3 + 1];
     dz = ray_d[pix * 3 + 2];
   }
-  const uint32_t px = (uint32_t)(x * 16 + 8);
-  const uint32_t py = (uint32_t)(y * 16 + 8);
+  const uint32_t px0 = (uint32_t)(x0 * 16 + 8);
+  const uint32_t py0 = (uint32_t)(y0 * 16 + 8);
 
   float T = 1.0f, pT = 1.0f, Cr = 0.0f, Cg = 0.0f, Cb = 0.0f, D = 0.0f;
   int nc = 0;
   bool done = !inside;
 
-  for (int r0 = start; r0 < end; r0 += kRound) {
-    // also the barrier that keeps the previous round's rows in place until
+  if (n_rounds > 0)
+    stage_round(rows, slot_face, face_f32, face_i32, start,
+                min(kRound, end - start));
+  cp_async_commit();
+  for (int r = 0; r < n_rounds; ++r) {
+    // also the barrier that keeps the other buffer's rows in place until
     // every thread has walked them
-    if (__syncthreads_count(done) == kRound) break;
-    const int slot = r0 + tid;
-    if (slot < end) {
-      const size_t row = (size_t)slot_face[slot];
-      const float* f = face_f32 + row * kNF;
-      const int* e = face_i32 + row * kNI;
-#pragma unroll
-      for (int c = 0; c < kNF; ++c) sf[tid][c] = f[c];
-#pragma unroll
-      for (int c = 0; c < kNI; ++c) si[tid][c] = e[c];
-    }
-    __syncthreads();
+    if (__syncthreads_and(done)) break;
+    const int r0 = start + r * kRound;
+    if (r + 1 < n_rounds)
+      stage_round(rows + ((r + 1) & 1) * kRound * kRowPad, slot_face,
+                  face_f32, face_i32, r0 + kRound,
+                  min(kRound, end - r0 - kRound));
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of round r have landed
+    __syncthreads();     // and every thread's
+    if (__all_sync(kFull, done)) continue;
+    const float* rr = rows + (r & 1) * kRound * kRowPad;
     const int n = min(kRound, end - r0);
-    for (int j = 0; j < n && !done; ++j) {
-      const float* f = sf[j];
-      const int* e = si[j];
-      const bool cover = edge_neg(e[0], e[3], e[6], px, py) &&
-                         edge_neg(e[1], e[4], e[7], px, py) &&
-                         edge_neg(e[2], e[5], e[8], px, py) &&
-                         f[kNondeg] > 0.0f;
-      if (!cover) continue;
+
+    // --- 1. the round's covered pairs: lane j's bits are the pixels that
+    // slot j covers, among those not done ---
+    const unsigned live = __ballot_sync(kFull, !done);
+    unsigned cov = 0;
+    if (lane < n) {
+      const float* f = rr + lane * kRowPad;
+      if (f[kNondeg] > 0.0f)
+        cov = patch_cover(reinterpret_cast<const int*>(f + kNF), px0, py0) &
+              live;
+    }
+    // --- 2. each lane's bits become its pixel's covered slots ---
+    unsigned mine = transpose32(cov, lane);
+
+    // --- 3. walk them in slot order ---
+    while (mine) {
+      const int sj = __ffs(mine) - 1;
+      mine &= mine - 1;
+      const float* f = rr + sj * kRowPad;
       const float Px = dy * f[kE2 + 2] - dz * f[kE2 + 1];
       const float Py = dz * f[kE2 + 0] - dx * f[kE2 + 2];
       const float Pz = dx * f[kE2 + 1] - dy * f[kE2 + 0];
       const float denom = Px * f[kE1 + 0] + Py * f[kE1 + 1] + Pz * f[kE1 + 2];
-      if (denom == 0.0f) continue;
+      if (denom == 0.0f) continue;  // a parallel ray: not blended
       const float inv = 1.0f / denom;
       const float u =
           (Px * f[kTV + 0] + Py * f[kTV + 1] + Pz * f[kTV + 2]) * inv;
@@ -165,10 +284,14 @@ tri_fwd_kernel(const int* __restrict__ starts, const int* __restrict__ ends,
       D = D + dep * w;
       pT = T;
       T = T * (1.0f - a);
-      nc = r0 - start + j + 1;
-      done = T < kTEps;
+      nc = r0 - start + sj + 1;
+      if (T < kTEps) {
+        done = true;
+        break;
+      }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block
 
   if (!inside) return;
   const size_t plane = (size_t)H * W;
@@ -184,9 +307,10 @@ tri_fwd_kernel(const int* __restrict__ starts, const int* __restrict__ ends,
 
 }  // namespace
 
-// Launch on `stream`; allocates nothing and does not synchronise. Outputs:
-// out [B, 6, H, W] f32 (C rgb, D, T, prevT), n_contrib [B, H, W] int32.
-// Returns the launch's cudaGetLastError().
+// Launch on `stream`; allocates nothing and does not synchronise. One
+// 1024-thread block per 32x32 tile. Outputs: out [B, 6, H, W] f32 (C rgb,
+// D, T, prevT), n_contrib [B, H, W] int32. Returns the launch's
+// cudaGetLastError().
 extern "C" int tri_fwd_composite(const void* starts, const void* ends,
                                  const void* slot_face, const void* face_f32,
                                  const void* face_i32, const void* ray_d,
@@ -195,9 +319,7 @@ extern "C" int tri_fwd_composite(const void* starts, const void* ends,
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
   const int gx = (W + kTile - 1) / kTile;
   const int gy = (H + kTile - 1) / kTile;
-  const dim3 grid((W + kQuad - 1) / kQuad, (H + kQuad - 1) / kQuad, B);
-  const dim3 block(kQuad, kQuad, 1);
-  tri_fwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  tri_fwd_kernel<<<dim3(gx, gy, B), kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)starts, (const int*)ends, (const int*)slot_face,
       (const float*)face_f32, (const int*)face_i32, (const float*)ray_d,
       (float*)out, (int*)n_contrib, H, W, gx, gy);

@@ -72,7 +72,7 @@ BINNED_FIRST_HIT_THRESHOLD = 2048
 # log(T) after a face of opacity 1: log(T_EPS * 0.1), rounded to f32.
 LOG_T_FLOOR = float(torch.tensor(math.log(T_EPS * 0.1), dtype=torch.float32))
 TET_GEO_COLS = 40  # p0, e1, e2 of the 4 face slots (36), 4 outward signs
-TET_NRM_COLS = 12  # the 4 face slots' outward unit normals (K5's walk)
+TET_NRM_COLS = 12  # the 4 face slots' outward unit normals (K4's, K5's walk)
 TET_ID_COLS = 8    # 4 face ids, 4 neighbour tet ids (-1: none)
 SHADE_COLS = 12    # 9 corner colours, alpha, log(max(1 - alpha, 1e-37)), inten
 
@@ -147,7 +147,7 @@ def march_tables(verts, faces, tets, tet_faces, face_tets, verts_color,
     Returns a dict: ``tet_geo`` [T, 40] f32 (p0, e1, e2 of the 4 face slots,
     then the outward sign of each slot: outward = sign * n-hat, from the
     side of the tet's centroid), ``tet_nrm`` [T, 12] f32 (each slot's
-    outward unit normal sign * n-hat, which the backward walk reads instead
+    outward unit normal sign * n-hat, which both walks read instead
     of rebuilding it), ``tet_ids`` [T, 8] int32 (the slots' face ids, then
     each slot's neighbour tet: the first entry of the face's ``face_tets``
     that is neither this tet nor -1), ``shade`` [B*F, 12] f32 (9 corner
@@ -258,7 +258,7 @@ def projective_zw(cam_o, ray_d, mv_t, proj_t):
 # =============================================================================
 
 def _check_march_args(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
-                      tet_ids, shade, N):
+                      tet_nrm, tet_ids, shade, H, W):
     M = ray_d.shape[0]
     B = cam_o.shape[0]
     T = tet_geo.shape[0]
@@ -266,6 +266,7 @@ def _check_march_args(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
             (zw, torch.float32, (M, 4)), (first_face, torch.int32, (M,)),
             (first_tet, torch.int32, (M,)), (tuv, torch.float32, (3, M)),
             (tet_geo, torch.float32, (T, TET_GEO_COLS)),
+            (tet_nrm, torch.float32, (T, TET_NRM_COLS)),
             (tet_ids, torch.int32, (T, TET_ID_COLS)),
             (shade, torch.float32, (shade.shape[0], SHADE_COLS)))
     for t, dtype, shape in want:
@@ -276,16 +277,18 @@ def _check_march_args(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
                              f"{tuple(t.shape)}")
         if t.device != ray_d.device:
             raise ValueError("fwd_march: all tensors must share a device")
-    if M != B * N or shade.shape[0] % B:
-        raise ValueError(f"fwd_march: {M} rays for {B} views of {N}, shade "
-                         f"rows {shade.shape[0]}")
+    if M != B * H * W or shade.shape[0] % B:
+        raise ValueError(f"fwd_march: {M} rays for {B} views of {H}x{W}, "
+                         f"shade rows {shade.shape[0]}")
 
 
-def fwd_march(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_ids,
-              shade, N: int, max_steps: int = DEFAULT_MAX_MARCH_STEPS):
+def fwd_march(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_nrm,
+              tet_ids, shade, H: int, W: int,
+              max_steps: int = DEFAULT_MAX_MARCH_STEPS):
     """March every ray through the tets from its first hit (kernel K4).
 
-    ray_d [M, 3] (M = B * N rays, view-major); cam_o [B, 3]; zw [M, 4]
+    ray_d [M, 3] (M = B * H * W rays, view-major, each view's pixels
+    row-major); cam_o [B, 3]; zw [M, 4]
     (``projective_zw``); first_face, first_tet [M] int32 (-1: the ray does
     not march); tuv [3, M] f32, the first hit's t, u, v; the tables of
     ``march_tables``. At most ``max_steps`` faces are blended per ray.
@@ -294,23 +297,25 @@ def fwd_march(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_ids,
 
     On CUDA tensors this launches the kernel of csrc/tet_fwd.cu (and raises
     if it cannot); on CPU tensors it runs ``fwd_march_plain``."""
-    args = (ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_ids,
-            shade)
-    _check_march_args(*args, N)
+    args = (ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_nrm,
+            tet_ids, shade)
+    _check_march_args(*args, H, W)
     if ray_d.device.type == "cpu":
-        return fwd_march_plain(*args, N, max_steps)
+        return fwd_march_plain(*args, H, W, max_steps)
     if ray_d.device.type != "cuda":
         raise ValueError(f"fwd_march: unsupported device {ray_d.device}")
     tensors = [x.contiguous() for x in args]
-    if tensors[2].data_ptr() % 16:
-        tensors[2] = tensors[2].clone()  # the kernel reads zw as float4
+    for j in (2, 6, 7, 8, 9):  # zw and the tables are read as 16-byte rows
+        if tensors[j].data_ptr() % 16:
+            tensors[j] = tensors[j].clone()
     M = ray_d.shape[0]
-    F = shade.shape[0] // cam_o.shape[0]
+    B = cam_o.shape[0]
+    F = shade.shape[0] // B
     dev = ray_d.device
     out_f = torch.empty((6, M), dtype=torch.float32, device=dev)
     out_i = torch.empty((4, M), dtype=torch.int32, device=dev)
     launch("tet_fwd", "tet_fwd_march", tensors + [out_f, out_i],
-           [M, N, F, int(max_steps), LOG_T_FLOOR], dev)
+           [B, H, W, F, int(max_steps), LOG_T_FLOOR], dev)
     fwd_march.launches += 1
     return out_f, out_i
 
@@ -347,10 +352,10 @@ def _walk(g, ids, cf, o, d, direction: int = 1, nrm=None):
     ``d`` (3-lists of [L]). ``direction`` +1 walks forward (the exit face's
     outward normal has a positive dot with the ray, the entry face's a
     negative one), -1 backward (both signs flipped). ``nrm`` [L, 12], the
-    tet's ``tet_nrm`` row, gives the outward normals (K5's walk); without
-    it they are rebuilt from ``g`` (K4's), to the same bits. Returns (err,
+    tet's ``tet_nrm`` row, gives the outward normals (K4's and K5's walk);
+    without it they are rebuilt from ``g``, to the same bits. Returns (err,
     next face, next tet, t, u, v), the kernels' per-slot arithmetic in their
-    order (csrc/tet_walk.cuh, csrc/tet_bwd.cu)."""
+    order (csrc/tet_walk.cuh)."""
     dx, dy, dz = d
     L = cf.shape[0]
     n_other = torch.zeros(L, dtype=torch.int32, device=cf.device)
@@ -399,7 +404,7 @@ def _walk(g, ids, cf, o, d, direction: int = 1, nrm=None):
 
 
 def fwd_march_plain(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
-                    tet_ids, shade, N: int,
+                    tet_nrm, tet_ids, shade, H: int, W: int,
                     max_steps: int = DEFAULT_MAX_MARCH_STEPS):
     """Plain torch version of ``fwd_march``: the same inputs, outputs and
     per-ray f32 arithmetic, vectorised over the rays that are still
@@ -407,7 +412,7 @@ def fwd_march_plain(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
     dev = ray_d.device
     M = ray_d.shape[0]
     F = shade.shape[0] // cam_o.shape[0]
-    view = torch.arange(M, device=dev) // N
+    view = torch.arange(M, device=dev) // (H * W)
     f32 = dict(dtype=torch.float32, device=dev)
     C = [torch.zeros(M, **f32) for _ in range(4)]  # r, g, b, D
     log_T = torch.zeros(M, **f32)
@@ -452,11 +457,11 @@ def fwd_march_plain(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
         active[live[term]] = 1
         keep = ~term
         live, ctl, cfl, vw = live[keep], ctl[keep], cfl[keep], vw[keep]
-        g = tet_geo[ctl.long()]
-        ids = tet_ids[ctl.long()]
+        ctl = ctl.long()
         o = [cam_o[vw, k] for k in range(3)]
         d = [ray_d[live, k] for k in range(3)]
-        err, nf, nt, t2, u2, v2 = _walk(g, ids, cfl, o, d)
+        err, nf, nt, t2, u2, v2 = _walk(tet_geo[ctl], tet_ids[ctl], cfl, o,
+                                        d, nrm=tet_nrm[ctl])
         ok = ~err
         live = live[ok]
         cf[live], ct[live] = nf[ok], nt[ok]
@@ -523,8 +528,9 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
     zw = projective_zw(cam_o, ray_d, mv_t, proj_t)
     tuv = torch.stack([rt.reshape(M), iu.reshape(M), iv.reshape(M)])
     out_f, out_i = fwd_march(rd_flat, cam_o, zw, ff_flat, first_tet, tuv,
-                             march["tet_geo"], march["tet_ids"],
-                             march["shade"], N, max_steps)
+                             march["tet_geo"], march["tet_nrm"],
+                             march["tet_ids"], march["shade"], height, width,
+                             max_steps)
 
     act = out_i[3] != 0
     final_T = torch.exp(out_f[4])

@@ -94,7 +94,8 @@ def _stages(t, h, w, seed):
     tuv = torch.stack([x.reshape(M) for x in s["fh"][1:4]])
     m = s["march"]
     s["march_inputs"] = (rd, cam_o, s["zw"], ff, s["first_tet"], tuv,
-                         m["tet_geo"], m["tet_ids"], m["shade"], h * w)
+                         m["tet_geo"], m["tet_nrm"], m["tet_ids"], m["shade"],
+                         h, w)
     return s
 
 
@@ -128,6 +129,50 @@ def test_march_kernel_matches_plain(case, cuda):
     assert torch.equal(gi, pi)
     assert int(gi[3].sum()) > 0 and int(gi[2].max()) > 1
     assert float((gf - pf).abs().max()) <= 1e-6
+
+
+def _march_bit_equal(inputs, max_steps=pt.DEFAULT_MAX_MARCH_STEPS):
+    got = pt.fwd_march(*inputs, max_steps)
+    torch.cuda.synchronize()
+    want = pt.fwd_march_plain(*inputs, max_steps)
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+    return want
+
+
+def test_march_kernel_bad_rays(cuda):
+    """K4 against its plain version where walks break the march's
+    invariants, at B=2: every 7th marching ray starts on a face of another
+    tet (no slot of its tet is the entry face), every 13th flies the other
+    way (its entry face does not oppose it). Each such walk ends after its
+    first blend with the pixel inactive."""
+    args, h, w, seed = _scene("adversarial")
+    s = _stages(tet_args_from_numpy(*args, device=cuda), h, w, seed)
+    inputs = list(s["march_inputs"])
+    ff, ft = inputs[3].clone(), inputs[4]
+    marching = torch.nonzero((ff >= 0) & (ft >= 0)).squeeze(1)
+    lost = marching[::7]
+    flipped = marching[3::13]
+    n_faces = args[1].shape[0]
+    ff[lost] = (ff[lost] + n_faces // 2) % n_faces
+    rd = inputs[0].clone()
+    rd[flipped] = -rd[flipped]
+    inputs[0], inputs[3] = rd, ff
+    _f, i_out = _march_bit_equal(inputs)
+    broken = torch.cat([lost, flipped])
+    assert int((i_out[3, broken] == 0).sum()) > broken.numel() // 2
+    assert bool((i_out[2, broken] >= 1).all())
+
+
+@pytest.mark.parametrize("max_steps", [1, 3])
+def test_march_kernel_cut_walks(max_steps, cuda):
+    """K4 against its plain version with ``max_steps`` below the longest
+    walk: a cut walk blends ``max_steps`` faces and stays inactive."""
+    args, h, w, seed = _scene("adversarial")
+    s = _stages(tet_args_from_numpy(*args, device=cuda), h, w, seed)
+    _f, i_out = _march_bit_equal(s["march_inputs"], max_steps)
+    cut = (i_out[2] == max_steps) & (i_out[3] == 0)
+    assert int(i_out[2].max()) == max_steps and int(cut.sum()) > 0
 
 
 @pytest.mark.parametrize("case", ["adversarial", "outside"])

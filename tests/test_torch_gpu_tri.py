@@ -52,7 +52,11 @@ CASES = {
     "binned_fixture": (24, 2, 13, 48, 40),
     "odd_33x40": (60, 1, 102, 33, 40),
     "mid_600": (600, 2, 5, 72, 56),
+    # lists of ~1,500-3,000 slots per 32x32 tile: many of the kernel's
+    # 32-slot rounds, pixels that finish mid-round and at a round's end
+    "many_rounds": (4096, 2, 7, 64, 64),
 }
+ROUND = 32  # the kernel's slots per staged round (csrc/tri_fwd.cu kRound)
 
 
 def _composite_inputs(t, h, w):
@@ -118,3 +122,48 @@ def test_trirenderer_on_card(cuda):
     assert (bool(ovf), int(n)) == (bool(ovf_c), int(n_c))
     assert float((c.cpu() - cc).abs().max()) <= 1e-4
     assert float((d.cpu() - dc).abs().max()) <= 1e-4
+
+
+def _assert_bit_equal(got, want):
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+
+
+def test_kernel_round_edges(cuda):
+    """K1 bit-equal to its plain version where every tile list spans more
+    than two rounds: pixels that finish inside a round, at a round's last
+    slot, after the second round, and never."""
+    n, b, seed, h, w = CASES["many_rounds"]
+    t = tri_inputs_from_numpy(*_soup_args(n, b, seed), device=cuda)
+    inputs = _composite_inputs(t, h, w)
+    got = ttb.fwd_composite(*inputs)
+    torch.cuda.synchronize()
+    want = ttb.fwd_composite_plain(*inputs)
+    _assert_bit_equal(got, want)
+    count = inputs[1] - inputs[0]
+    assert int(count.min()) > 2 * ROUND
+    _C, _D, T, _pT, nc = want
+    finished = T < 1e-4
+    assert int((finished & (nc % ROUND == 0)).sum()) > 0
+    assert int((finished & (nc % ROUND != 0)).sum()) > 0
+    assert int((nc > 2 * ROUND).sum()) > 0
+    assert int((~finished).sum()) > 0
+
+
+def test_kernel_empty_tile_list(cuda):
+    """A tile whose list is empty (and a neighbour's that is one slot
+    long) among long ones: its pixels keep T = 1 and n_contrib 0."""
+    n, b, seed, h, w = CASES["many_rounds"]
+    t = tri_inputs_from_numpy(*_soup_args(n, b, seed), device=cuda)
+    starts, ends, *rest = _composite_inputs(t, h, w)
+    ends = ends.clone()
+    ends[0] = starts[0]
+    ends[1] = starts[1] + 1
+    inputs = (starts, ends, *rest)
+    got = ttb.fwd_composite(*inputs)
+    torch.cuda.synchronize()
+    want = ttb.fwd_composite_plain(*inputs)
+    _assert_bit_equal(got, want)
+    _C, _D, T, _pT, nc = got
+    assert bool((T[0, :32, :32] == 1).all() and (nc[0, :32, :32] == 0).all())
+    assert int(nc[0, :32, 32:64].max()) <= 1

@@ -38,6 +38,7 @@ from dmesh_renderer_tpu_torch.validation import check_tet_inputs as p_check
 from numpy_reference import render_tet_np
 import scenes
 import test_tet_spec
+import test_torch_gpu_tet as gpu_tet
 
 FWD_ATOL = 1e-5
 STAGE_ATOL = 1e-6
@@ -319,19 +320,43 @@ def test_march_plain_on_cpu(spec):
     pt.render_tet_forward(*t, h, w, 0)
     assert (pfh.first_hit.launches, pt.fwd_march.launches) == before
     z = torch.zeros((4, 3))
-    with pytest.raises(ValueError):
-        pt.fwd_march(z, torch.zeros((1, 3)), torch.zeros((4, 4)),
-                     torch.zeros(4, dtype=torch.int32),
-                     torch.zeros(4, dtype=torch.int32), torch.zeros((3, 4)),
-                     torch.zeros((1, 40)), torch.zeros((1, 8),
-                                                       dtype=torch.int32),
-                     torch.zeros((2, 12)), 3)
+    i4 = torch.zeros(4, dtype=torch.int32)
+    ids = torch.zeros((1, 8), dtype=torch.int32)
+    head = (z, torch.zeros((1, 3)), torch.zeros((4, 4)))
+    with pytest.raises(ValueError, match="4 rays for 1 views of 3x1"):
+        pt.fwd_march(*head, i4, i4, torch.zeros((3, 4)), torch.zeros((1, 40)),
+                     torch.zeros((1, 12)), ids, torch.zeros((2, 12)), 3, 1)
     with pytest.raises(TypeError):
-        pt.fwd_march(z, torch.zeros((1, 3)), torch.zeros((4, 4)),
-                     torch.zeros(4), torch.zeros(4, dtype=torch.int32),
-                     torch.zeros((3, 4)), torch.zeros((1, 40)),
-                     torch.zeros((1, 8), dtype=torch.int32),
-                     torch.zeros((2, 12)), 4)
+        pt.fwd_march(*head, torch.zeros(4), i4, torch.zeros((3, 4)),
+                     torch.zeros((1, 40)), torch.zeros((1, 12)), ids,
+                     torch.zeros((2, 12)), 2, 2)
+    # the normal table: [T, 12] f32 beside the geometry's T rows
+    with pytest.raises(ValueError, match=r"expected shape \(1, 12\)"):
+        pt.fwd_march(*head, i4, i4, torch.zeros((3, 4)), torch.zeros((1, 40)),
+                     torch.zeros((2, 12)), ids, torch.zeros((1, 12)), 2, 2)
+    with pytest.raises(TypeError):
+        pt.fwd_march(*head, i4, i4, torch.zeros((3, 4)), torch.zeros((1, 40)),
+                     torch.zeros((1, 12), dtype=torch.float64), ids,
+                     torch.zeros((1, 12)), 2, 2)
+
+
+@pytest.mark.parametrize("case", ["adversarial", "outside"])
+def test_march_normal_table_bit_equal(case, monkeypatch):
+    """The march that reads ``march_tables``' ``tet_nrm`` (K4's walk) gives
+    the bits of the march that rebuilds every outward normal from the
+    geometry, on the adversarial scene (a jittered grid, cameras at its
+    edge) and with cameras outside the mesh."""
+    args, h, w, seed = gpu_tet._scene(case)
+    s = gpu_tet._stages(tet_args_from_numpy(*args, device="cpu"), h, w, seed)
+    got = pt.fwd_march_plain(*s["march_inputs"])
+    walk = pt._walk
+    monkeypatch.setattr(pt, "_walk",
+                        lambda *a, nrm=None, **kw: walk(*a, **kw))
+    want = pt.fwd_march_plain(*s["march_inputs"])
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+    n_contrib, active = want[1][2], want[1][3]
+    assert int(active.sum()) > 0 and int(n_contrib.max()) > 2
 
 
 # ---------------------------------------------------------------- forward
