@@ -8,8 +8,8 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 1. print the card (name, count, nvidia-smi name and power limit);
 2. build the CUDA kernels of dmesh_renderer_tpu_torch/csrc (one nvcc per
    source, all at once) and print the build time and ptxas usage, K1's,
-   K4's, K5's and seg_sum's registers and shared memory on a line of their
-   own;
+   K3's, K4's, K5's, seg_sum's and T4's registers and shared memory on a
+   line of their own;
 3. hold the forward compositing kernel (K1, ``fwd_composite``) against its
    plain torch version on the card, at 4096 triangles, 256x256, B=2 and at
    the headline scene (100k triangles, 800x800, B=1, seed 0); time it
@@ -51,11 +51,16 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 11. the B=2 scene (20k triangles, 800x800) with gradients;
 12. hold the tet first-hit kernel (K3, ``first_hit``) and march kernel (K4,
     ``fwd_march``) against their plain versions at a small scene
-    (``freudenthal_grid(6, 0.14, 21)``, 256x256, B=2, ray seed 17) and at
+    (``freudenthal_grid(6, 0.14, 21)``, 256x256, B=2, ray seed 17), at a
+    ragged one (``freudenthal_grid(8, 0.1, 8)``, 100x72, B=2) and at
     the tet headline (``freudenthal_grid(20, 0.15, 2)``: 98,400 faces,
     48,000 tets, 800x800, B=1); time them (CUDA events, and their device
     times under the profiler) and work out their bounds from the run's
-    counts;
+    counts; for K3 also count what its earlier shape (a block per 16x16
+    quarter, 256-slot rounds) and its current one (a block per 32x32 tile,
+    32-slot rounds, the next one staged while one is walked) do with this
+    run's data: the rows each stages beside the slots needed, the rounds
+    per tile, and the lane occupancy of their warps;
 13. drive the tet serving path, ``TetRenderer`` on the card at the tet
     headline, counts set to 0 just before and read just after (K3 and K4
     once each); check the pair count (321,998, no overflow) and the
@@ -98,9 +103,10 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
     at 640,000 rays, step 1 and the 8-step chain on the tool's random
     tables, and step 1 and a 2-step chain on the tet headline's mesh, where
     rays advance; print the largest difference, each kernel's device time
-    under the profiler, the plain versions' times with the tools' timer,
-    and the bound from the run's counts (T1 also its 32-byte sector
-    floor);
+    under the profiler (T4 also per step of the chain, beside the chain's
+    per-step total, which holds the tool's torch glue), the plain
+    versions' times with the tools' timer, and the bound from the run's
+    counts (T1 also its 32-byte sector floor);
 20b. split the host cost of one T1 call into its pieces (checks, output
     allocation, device, stream, pointers, the ctypes call), in us per call
     over 2,000 calls, for the call path before the lean one (rebuilt from
@@ -165,6 +171,7 @@ FACE_ROW_BYTES = (27 + 9) * 4 + 4  # f32 + i32 face row, and its slot_face
 TET_HEADLINE = dict(n_grid=20, n_views=1, height=800, width=800)
 TET_SMALL = (6, 0.14, 21, 2, 256, 256, 17)
 TET_DENSE = (5, 0.1, 8, 2, 256, 256, 0)  # 1,950 faces: the dense first hit
+TET_RAGGED = (8, 0.1, 8, 2, 100, 72, 5)  # K3/K4 on an image of partial tiles
 # Facts of the tet headline, not times: the (face, tile) pairs of its bbox
 # emission at 32-px tiles (the JAX package's count), and the pixels with a
 # first hit, which no transcendental enters, so the count is exact
@@ -775,6 +782,60 @@ def compare_tet_kernels(fh_inputs, march_inputs, label):
     return max(err3, err4), g3, visits, g4, (eq3, eq4)
 
 
+def k3_shapes(fh_inputs, walked, visits):
+    """What K3's shapes do with this run's data, from the plain version's
+    per-pixel visits (the faces a pixel hit-tested; one that tested fewer
+    than its list holds stopped at the next slot, and steps once more to
+    read it): the rows that the earlier shape (a 256-thread block per 16x16
+    quarter of a tile, 256-slot rounds) staged, counted as its plain
+    version counted them, and that the current one (a block per tile,
+    32-slot rounds, the next one staged while one is walked) staged, which
+    is K3's ``walked``; the current shape's rounds per tile; and the lane
+    occupancy, the tests over the test slots of the warps' steps (a warp
+    steps as long as its slowest pixel, and offers one test per pixel per
+    step), of the earlier 16x2-pixel warps, of 8x4-pixel warps with one
+    pixel a lane, and of the current 16x8-pixel warps with four."""
+    starts, ends, _sf, _tab, _rd, B, H, W = fh_inputs
+    gx, gy = (W + 31) // 32, (H + 31) // 32
+    never = 1 << 40
+    count = (ends - starts).long()
+    inside = _tile_planes(torch.ones_like(visits, dtype=torch.bool), B, H, W,
+                          gx, gy, False)
+    v = _tile_planes(visits, B, H, W, gx, gy, 0)  # [NT, 1024]
+    cnt = count[:, None].expand_as(v)
+    stopped = inside & (v < cnt)
+    steps = torch.where(stopped, v + 1, torch.where(inside, cnt, 0))
+    done_at = torch.where(stopped, v, torch.where(inside, never, -1))
+    q_last = done_at.reshape(-1, 2, 16, 2, 16).amax(dim=(2, 4))
+    q_rounds = torch.clamp(q_last, max=never - 1) // 256 + 1
+    rows_quarter = int(torch.minimum(count[:, None, None], q_rounds * 256)
+                       .sum())
+    n_rounds = (count + 31) // 32
+    walked_rounds = torch.minimum(
+        n_rounds, torch.clamp(done_at.amax(dim=1), max=never - 1) // 32 + 1)
+    staged = torch.minimum(n_rounds, walked_rounds + 1)
+    check(torch.equal(torch.minimum(count, staged * 32),
+                      walked.reshape(-1).long()),
+          "K3's walked disagrees with the rounds its pixels need")
+    tests = int(v.sum())
+    occ, warp_steps = {}, {}
+    for name, pw, ph in (("quarter_blocks_16x2_warps", 16, 2),
+                         ("tile_blocks_8x4_warps_1_pixel_a_lane", 8, 4),
+                         ("tile_blocks_16x8_warps_4_pixels_a_lane", 16, 8)):
+        ws = int(steps.reshape(-1, 32 // ph, ph, 32 // pw, pw)
+                 .amax(dim=(2, 4)).sum())
+        warp_steps[name] = ws
+        occ[name] = tests / max(1, pw * ph * ws)
+    f = lambda x: {"mean": float(x.double().mean()), "max": int(x.max())}
+    return {
+        "rows_staged": {"quarter_blocks_256_slot_rounds": rows_quarter,
+                        "tile_blocks_32_slot_rounds": int(walked.sum())},
+        "rounds_per_tile": {"in_list": f(n_rounds), "walked": f(walked_rounds),
+                            "staged": f(staged)},
+        "lane_occupancy": occ, "warp_steps": warp_steps, "tests": tests,
+    }
+
+
 def tet_phases(dev):
     """Phases 12-14: the tet kernels, the tet serving path and its edge
     cases. Returns (the kernels' JSON entries, a dict of tet numbers)."""
@@ -792,6 +853,16 @@ def tet_phases(dev):
         fn()
     err_s, _g3, _v, _g4, eq_s = compare_tet_kernels(
         fh_s(), mi_s(), f"freudenthal_grid(6), {hs}x{ws}, B=2, seed 17")
+    # a ragged image (no multiple of 32): tiles with pixels past the edge
+    n, jit, gs, b, hs, ws, seed = TET_RAGGED
+    _u, fr, _bg = tet_user(n, b, jit, gs, dev)
+    seq_r, _st, fh_r, mi_r = tet_stages(fr, hs, ws, seed)
+    for _n, fn in seq_r[:-1]:
+        fn()
+    err_r, _g3, _v, _g4, eq_r = compare_tet_kernels(
+        fh_r(), mi_r(), f"freudenthal_grid({n}), {hs}x{ws}, B=2, seed {seed}")
+    err_s = max(err_s, err_r)
+    eq_s = (eq_s[0] and eq_r[0], eq_s[1] and eq_r[1])
 
     H, W = TET_HEADLINE["height"], TET_HEADLINE["width"]
     user, fargs, bg = tet_user(TET_HEADLINE["n_grid"], 1, 0.15, 2, dev)
@@ -840,6 +911,7 @@ def tet_phases(dev):
                           k4_bytes)[0]
     k3_dev_ms = profiled_device_ms(lambda: pfh.first_hit(*fh_in()),
                                    "tet_first_hit_kernel")
+    k3_sh = k3_shapes(fh_in(), g3[4], visits)
     k4_dev_ms = profiled_device_ms(lambda: pt.fwd_march(*m_in()),
                                    "tet_fwd_march_kernel")
     log(f"K3 at tet headline: {k3_ms:.4f} ms (device {k3_dev_ms:.4f}); "
@@ -848,6 +920,19 @@ def tet_phases(dev):
         f"needed, {n_visits} (pixel, face) tests -> {k3_ops_ms:.4f} ms; "
         f"{k3_bytes} bytes -> {k3_bytes_ms:.4f} ms; bound {k3_bound:.4f} ms "
         f"by {k3_by}")
+    rs, rt, occ = (k3_sh["rows_staged"], k3_sh["rounds_per_tile"],
+                   k3_sh["lane_occupancy"])
+    log(f"K3 shapes at the tet headline: rows staged, quarter blocks with "
+        f"256-slot rounds {rs['quarter_blocks_256_slot_rounds']}, tile "
+        f"blocks with 32-slot rounds {rs['tile_blocks_32_slot_rounds']} "
+        f"({need_slots} needed); 32-slot rounds per tile: in the list "
+        f"{rt['in_list']}, walked {rt['walked']}, staged {rt['staged']}; "
+        f"lane occupancy (tests over the warps' test slots): 16x2 warps "
+        f"{occ['quarter_blocks_16x2_warps']:.4f}, 8x4 warps with a pixel a "
+        f"lane {occ['tile_blocks_8x4_warps_1_pixel_a_lane']:.4f}, 16x8 "
+        f"warps with 4 pixels a lane "
+        f"{occ['tile_blocks_16x8_warps_4_pixels_a_lane']:.4f} (warp-steps "
+        f"{k3_sh['warp_steps']})")
     log(f"K4 at tet headline: {k4_ms:.4f} ms (device {k4_dev_ms:.4f}); "
         f"plain {k4_plain_ms:.2f} ms. Work: {blends} blends, {walks} walk "
         f"steps (normals read from tet_nrm) -> {k4_ops_ms:.4f} ms; "
@@ -996,7 +1081,7 @@ def tet_phases(dev):
          "bound_ms": k3_bound, "bound_by": k3_by,
          "bit_equal": bool(eq_s[0] and eq_h[0]), "pairs": n_pairs,
          "slots_staged": walked, "slots_needed": need_slots,
-         "visits": n_visits, "hit_pixels": hit_pixels},
+         "visits": n_visits, "hit_pixels": hit_pixels, **k3_sh},
         {**common, "name": "tet_fwd_march",
          "replaces": "dmesh_renderer_tpu/ops/tet.py:503",
          "launches": launches["tet_fwd_march"],
@@ -1323,11 +1408,12 @@ def tet_train_phases(dev, head):
     return k5, info
 
 
-def profiled_device_ms(fn, kernel, reps=10):
-    """The mean device time (ms) of the kernel whose name holds ``kernel``
-    over ``reps`` calls of ``fn()`` under the profiler: the kernel's own
-    time, without the host's launch cost that events around back-to-back
-    calls also see."""
+def profiled_device_ms(fn, kernel, reps=10, per_call=1):
+    """The mean device time (ms) of one launch of the kernel whose name
+    holds ``kernel`` over ``reps`` calls of ``fn()`` (each launching it
+    ``per_call`` times) under the profiler: the kernel's own time, without
+    the host's launch cost that events around back-to-back calls also
+    see."""
     from torch.profiler import ProfilerActivity, profile
 
     from dmesh_renderer_tpu_torch.utils import diagnostics as dg
@@ -1346,13 +1432,14 @@ def profiled_device_ms(fn, kernel, reps=10):
             torch.cuda.synchronize()
         by_name = dg.device_time_by_name(prof)
         hits = [(c, ms) for n, (c, ms) in by_name.items() if kernel in n]
-        if len(hits) == 1 and 0 < hits[0][0] <= reps:
-            if hits[0][0] < reps:
+        want = reps * per_call
+        if len(hits) == 1 and 0 < hits[0][0] <= want:
+            if hits[0][0] < want:
                 log(f"profiled {kernel}: the window holds {hits[0][0]} of "
-                    f"its {reps} launches; their mean is taken")
+                    f"its {want} launches; their mean is taken")
             return hits[0][1] / hits[0][0]
         log(f"profiled {kernel}, window {attempt + 1}: {hits} (want up to "
-            f"{reps} launches of one kernel); {len(by_name)} device names: "
+            f"{want} launches of one kernel); {len(by_name)} device names: "
             f"{[n[:60] for n in list(by_name)[:4]]}")
     raise AssertionError(f"profiled {kernel}: no window held its launches")
 
@@ -1552,12 +1639,17 @@ def probe_kernel_phases(dev, answers, launches):
     t4_ms, t4c_step_ms = pa["step1_ms"], pa["chain_ms_per_step"]
     t4_dev = profiled_device_ms(lambda: pm.proto_step(*ptabs),
                                 "proto_step_kernel")
+    # the kernel's own time per chained step, beside the chain's per-step
+    # total, which also holds the tool's torch glue between steps
+    t4c_dev = profiled_device_ms(lambda: pm.chain(*ptabs), "proto_step_kernel",
+                                 reps=2, per_call=pm.REPS)
     t4_plain = measure(lambda: pm.proto_step_plain(*ptabs))
     log(f"T4 proto_step at {PROBE_RAYS} rays: step 1 and the {pm.REPS}-step "
         f"chain on the random tables, step 1 and the 2-step chain on the "
         f"mesh, bit-equal to plain; step 1 {t4_ms:.4f} ms per call, device "
         f"{t4_dev:.4f} ms (bound {t4_bound:.5f} by {t4_by}), chain "
-        f"{t4c_step_ms:.4f} ms/step (bound {t4c_bound / pm.REPS:.5f} "
+        f"{t4c_step_ms:.4f} ms/step, of which the kernel's device time "
+        f"{t4c_dev:.4f} ms/step (bound {t4c_bound / pm.REPS:.5f} "
         f"ms/step by {t4c_by}), plain step {t4_plain:.3f} ms; random "
         f"tables: error lanes {n_err} of {PROBE_RAYS}, after step 1 {n_cf} "
         f"distinct faces and {n_ct} distinct tets; mesh: {n_adv[0]} lanes "
@@ -1598,6 +1690,7 @@ def probe_kernel_phases(dev, answers, launches):
          "ms": t4_ms, "device_ms": t4_dev, "plain_ms": t4_plain,
          "bound_ms": t4_bound, "bound_by": t4_by, "library_ms": None,
          "chain_ms_per_step": t4c_step_ms,
+         "chain_device_ms_per_step": t4c_dev,
          "chain_bound_ms_per_step": t4c_bound / pm.REPS,
          "error_lanes_step1": n_err, "distinct_faces_after_step1": n_cf,
          "distinct_tets_after_step1": n_ct,
@@ -1837,10 +1930,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {src}: {line.strip()}")
     ptxas = {k: ptxas_usage(logs, k) for k in (
-        "tri_fwd_kernel", "tet_fwd_march", "seg_sum", "tet_bwd_march")}
-    log(f"ptxas: K1 tri_fwd_kernel {ptxas['tri_fwd_kernel']}; K4 "
+        "tri_fwd_kernel", "tet_first_hit", "tet_fwd_march", "seg_sum",
+        "tet_bwd_march", "proto_step")}
+    log(f"ptxas: K1 tri_fwd_kernel {ptxas['tri_fwd_kernel']}; K3 "
+        f"tet_first_hit {ptxas['tet_first_hit']}; K4 "
         f"tet_fwd_march {ptxas['tet_fwd_march']}; seg_sum "
-        f"{ptxas['seg_sum']}; K5 tet_bwd_march {ptxas['tet_bwd_march']}")
+        f"{ptxas['seg_sum']}; K5 tet_bwd_march {ptxas['tet_bwd_march']}; "
+        f"T4 proto_step {ptxas['proto_step']}")
 
     # ---- K1 against plain: 4096 tris at 256^2, B=2; then the headline
     user_s, fargs_s, _bg = scene_tensors(**SMALL, dev=dev)
@@ -2177,9 +2273,11 @@ def main() -> int:
     tet_kernels, tet_info, tet_head = tet_phases(dev)
     k5_entry, tet_train_info = tet_train_phases(dev, tet_head)
     k5_entry["ptxas"] = ptxas["tet_bwd_march"]
+    tet_kernels[0]["ptxas"] = ptxas["tet_first_hit"]
     tet_kernels[1]["ptxas"] = ptxas["tet_fwd_march"]
     answers, probe_launches = tools_main_path(dev)
     probe_entries = probe_kernel_phases(dev, answers, probe_launches)
+    probe_entries[3]["ptxas"] = ptxas["proto_step"]
     split_us = launch_path_split(dev)
     tet_head["tri_user"] = user
     diag = diagnostics_phases(dev, fargs, tet_head)

@@ -39,6 +39,18 @@
 // 18 MB at the headline sizes and stay in the 50 MB L2); the ~420 f32
 // operations a ray needs take a tenth of that time at the f32 peak.
 //
+// T4 reads the ray's pack row (48 f32, 192 bytes) and shade row (12 f32, 48
+// bytes) as 12 + 3 float4 loads into registers, and walks and blends from
+// there. On the tool's random tables each warp load touches 32 rows, so the
+// 60 scalar loads it took before cost 60 x 32 row accesses a warp; the
+// vector loads cost a quarter of that (0.117 -> 0.074 ms of device time at
+// 640,000 rays on the H100). A warp that staged its 32 rows in shared
+// memory with coalesced 16-byte copies first measured no faster. The rows
+// held in registers raise the kernel to 96 registers, which costs
+// occupancy where rows are L1 hits (the mesh tables, whose neighbouring
+// rays share tets). The tables must be 16-byte aligned; proto_step's
+// wrapper copies one that is not.
+//
 // Built with --fmad=false and IEEE division and square root, so that every
 // f32 operation rounds as the elementwise torch ops of the plain versions
 // (tools/exp_round3.py mega_step_plain, tools/proto_march_kernel.py
@@ -143,18 +155,34 @@ two_table_step_kernel(const float* __restrict__ tet_geo,
   mega_body(tet_geo + (size_t)c * kTG, ids, sh, consts, state, out, i, M);
 }
 
+// n floats of a 16-byte aligned row into registers, as n / 4 float4 loads
+template <int n>
+__device__ __forceinline__ void load_row(const float4* __restrict__ src,
+                                         float* dst) {
+#pragma unroll
+  for (int q = 0; q < n / 4; ++q) {
+    const float4 a = src[q];
+    dst[4 * q] = a.x;
+    dst[4 * q + 1] = a.y;
+    dst[4 * q + 2] = a.z;
+    dst[4 * q + 3] = a.w;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-proto_step_kernel(const float* __restrict__ pack,
-                  const float* __restrict__ shade, const int* __restrict__ ct,
-                  const int* __restrict__ cf_idx,
+proto_step_kernel(const float4* __restrict__ pack,
+                  const float4* __restrict__ shade,
+                  const int* __restrict__ ct, const int* __restrict__ cf_idx,
                   const float* __restrict__ consts,
                   const float* __restrict__ state, float* __restrict__ out,
                   int M, int T, int F) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M) return;
   const size_t m = (size_t)M;
-  const float* p = pack + (size_t)clampi(ct[i], T) * kPack;
-  const float* sh = shade + (size_t)clampi(cf_idx[i], F) * kSH;
+  // the ray's pack row (12 float4) and shade row (3 float4), in registers
+  float p[kPack], sh[kSH];
+  load_row<kPack>(pack + (size_t)clampi(ct[i], T) * (kPack / 4), p);
+  load_row<kSH>(shade + (size_t)clampi(cf_idx[i], F) * (kSH / 4), sh);
   auto s = [&](int r) { return state[r * m + i]; };
   auto c = [&](int r) { return consts[r * m + i]; };
   const float cf = s(3), t0 = s(0), u0 = s(1), v0 = s(2);
@@ -225,8 +253,8 @@ extern "C" int two_table_step(const void* tet_geo, const void* tet_ids,
   return (int)cudaGetLastError();
 }
 
-// Launch T4 on `stream`: pack [T, 48] f32, shade [F, 12] f32, ct and cf
-// [M] int32, consts [C, M] f32 (C >= 10; rows 0..9 are read), state
+// Launch T4 on `stream`: pack [T, 48] f32, shade [F, 12] f32 (both read as
+// 16-byte rows: 16-byte aligned), ct and cf [M] int32, consts [C, M] f32 (C >= 10; rows 0..9 are read), state
 // [16, M] f32, out [16, M] f32. Allocates nothing and does not synchronise.
 // Returns the launch's cudaGetLastError().
 extern "C" int proto_step(const void* pack, const void* shade, const void* ct,
@@ -235,7 +263,7 @@ extern "C" int proto_step(const void* pack, const void* shade, const void* ct,
                           void* stream) {
   if (M <= 0) return (int)cudaSuccess;
   proto_step_kernel<<<blocks(M), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)pack, (const float*)shade, (const int*)ct,
+      (const float4*)pack, (const float4*)shade, (const int*)ct,
       (const int*)cf, (const float*)consts, (const float*)state, (float*)out,
       M, T, F);
   return (int)cudaGetLastError();

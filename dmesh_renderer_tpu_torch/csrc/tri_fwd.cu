@@ -66,7 +66,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace {
+
+using acopy::cp_async4;
+using acopy::cp_async_commit;
+using acopy::cp_async_wait;
 
 constexpr int kTile = 32;     // binning tile side (coverage-rect granularity)
 constexpr int kThreads = kTile * kTile;  // one thread per pixel of a tile
@@ -130,21 +136,6 @@ __device__ __forceinline__ unsigned transpose32(unsigned a, int lane) {
     a = (lane & j) ? (a & ~lo) | ((o & ~lo) >> j) : (a & lo) | ((o & lo) << j);
   }
   return a;
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 // Start the copies of the n rows of slots [r0, r0 + n) into buf: thread k

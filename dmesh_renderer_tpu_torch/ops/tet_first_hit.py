@@ -25,9 +25,8 @@ from ..utils.config import BIN_TILE
 from .binning import emit_and_sort
 from .geometry import cross
 
-TILE = BIN_TILE
-QUAD = 16  # side of the pixel quarter one kernel block covers
-ROUND = QUAD * QUAD  # slots one block stages per round
+TILE = BIN_TILE  # side of the pixel tile one kernel block covers
+ROUND = 32  # slots a block stages per round
 FH_COLS = 16
 _TV, _E1, _E2, _QV, _MIND, _MAXD, _FID = 0, 3, 6, 9, 12, 13, 14
 _BIG = 3.0e38
@@ -78,8 +77,10 @@ def first_hit(starts, ends, slot_face, table, ray_d, B: int, H: int, W: int):
     starts/ends [B*gy*gx] int32 tile ranges into ``slot_face`` [S] int32
     (rows of the depth-sorted first-hit table [B*F, 16]); ray_d [B, H, W, 3].
     Returns (first_face [B, H, W] int32 (-1: no hit), t (0 on a miss), u, v
-    [B, H, W] f32, walked [B, qy, qx] int32): ``walked`` is the number of
-    slots each 16x16 quarter staged before its pixels were all done.
+    [B, H, W] f32, walked [B, gy, gx] int32): ``walked`` is the number of
+    slots each tile's block staged, in rounds of ``ROUND`` with the next
+    round staged while one is walked, until at a round's start all of the
+    tile's pixels were done: min(list length, ROUND x (rounds walked + 1)).
 
     On CUDA tensors this launches the kernel of csrc/tet_fwd.cu (and raises
     if it cannot); on CPU tensors it runs ``first_hit_plain``."""
@@ -93,10 +94,10 @@ def first_hit(starts, ends, slot_face, table, ray_d, B: int, H: int, W: int):
     if tensors[3].data_ptr() % 16:
         tensors[3] = tensors[3].clone()  # the kernel reads rows as float4
     dev = ray_d.device
-    qy, qx = (H + QUAD - 1) // QUAD, (W + QUAD - 1) // QUAD
+    gy, gx = (H + TILE - 1) // TILE, (W + TILE - 1) // TILE
     tuv = torch.empty((B, 3, H, W), dtype=torch.float32, device=dev)
     face = torch.empty((B, H, W), dtype=torch.int32, device=dev)
-    walked = torch.empty((B, qy, qx), dtype=torch.int32, device=dev)
+    walked = torch.empty((B, gy, gx), dtype=torch.int32, device=dev)
     launch("tet_fwd", "tet_first_hit", tensors + [tuv, face, walked],
            [B, H, W], dev)
     first_hit.launches += 1
@@ -112,20 +113,18 @@ def first_hit_plain(starts, ends, slot_face, table, ray_d, B: int, H: int,
     per-pixel arithmetic, vectorised over the pixels and sequential over
     the list position. Each step walks the pixels that are not done and
     whose list is longer; ``walked`` follows from the position at which
-    each pixel became done and the kernel's 256-slot rounds.
+    each pixel became done and the kernel's rounds.
 
     ``with_visits``: also return the number of faces each pixel
     hit-tested [B, H, W] int64 (the work its result needs)."""
     dev = ray_d.device
     gx = (W + TILE - 1) // TILE
     gy = (H + TILE - 1) // TILE
-    qy, qx = (H + QUAD - 1) // QUAD, (W + QUAD - 1) // QUAD
     N = B * H * W
     bi = torch.arange(B, device=dev)[:, None, None]
     yi = torch.arange(H, device=dev)[None, :, None]
     xi = torch.arange(W, device=dev)[None, None, :]
     tile = ((bi * gy + yi // TILE) * gx + xi // TILE).reshape(N)
-    quad = ((bi * qy + yi // QUAD) * qx + xi // QUAD).reshape(N)
     start = starts.long()[tile]
     count = (ends - starts).long()[tile]
     d = ray_d.reshape(N, 3)
@@ -172,22 +171,21 @@ def first_hit_plain(starts, ends, slot_face, table, ray_d, B: int, H: int,
         bv[upd] = v[better]
         k += 1
 
-    # walked: a block stages rounds until, at a round's start, every one of
-    # its pixels is done
-    last = torch.full((B * qy * qx,), -1, dtype=torch.int64, device=dev)
-    last = last.scatter_reduce(0, quad, done_at, "amax")
-    qb = torch.arange(B, device=dev)[:, None, None]
-    qyi = torch.arange(qy, device=dev)[None, :, None]
-    qxi = torch.arange(qx, device=dev)[None, None, :]
-    qtile = ((qb * gy + qyi // 2) * gx + qxi // 2).reshape(-1)
-    qcount = (ends - starts).long()[qtile]
-    rounds = torch.clamp(last, max=never - 1) // ROUND + 1
-    walked = torch.minimum(qcount, rounds * ROUND).to(torch.int32)
+    # walked: a tile's block walks rounds until, at a round's start, every
+    # one of its pixels is done (a pixel is done in the round that holds the
+    # slot that stopped it), and stages each round while it walks the one
+    # before
+    last = torch.full((B * gy * gx,), -1, dtype=torch.int64, device=dev)
+    last = last.scatter_reduce(0, tile, done_at, "amax")
+    tcount = (ends - starts).long()
+    walked_rounds = torch.clamp(last, max=never - 1) // ROUND + 1
+    staged = torch.minimum((tcount + ROUND - 1) // ROUND, walked_rounds + 1)
+    walked = torch.minimum(tcount, staged * ROUND).to(torch.int32)
 
     shape = (B, H, W)
     t = torch.where(bt < big, bt, 0.0)
     out = (bface.reshape(shape), t.reshape(shape), bu.reshape(shape),
-           bv.reshape(shape), walked.reshape(B, qy, qx))
+           bv.reshape(shape), walked.reshape(B, gy, gx))
     if with_visits:
         visits = torch.where(done_at == never, count, done_at)
         return out + (visits.reshape(shape),)

@@ -90,6 +90,9 @@ def proto_step(pack, shade, ct, cf, consts, state):
     if not _on_cuda("proto_step", *args):
         return proto_step_plain(*args)
     ins = [x.contiguous() for x in args]
+    for k in (0, 1):  # the kernel reads the table rows as float4
+        if ins[k].data_ptr() % 16:
+            ins[k] = ins[k].clone()
     out = torch.empty_like(ins[5])
     launch("march_probe", "proto_step", ins + [out], [nM, nT, nF],
            pack.device)

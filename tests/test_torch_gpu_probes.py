@@ -113,6 +113,28 @@ def test_proto_chain_matches_plain(mesh, cuda):
     assert bool((got[0][11] == 0).any()) == mesh
 
 
+def test_proto_step_misaligned_tables(cuda):
+    """T4 on tables whose base is not 16-byte aligned (views at storage
+    offset 1; the wrapper copies them, the kernel reads rows as float4),
+    bit-equal to its plain version, on the random tables and on a mesh."""
+    M = 4096 + 37
+    for tabs in (pm.random_tables(cuda, M=M, T=300, F=700),
+                 pm.mesh_tables(cuda, n_grid=4, M=M)):
+        views = []
+        for tab in tabs[:2]:
+            base = torch.empty(tab.numel() + 1, device=cuda)
+            view = base[1:].view(tab.shape)
+            view.copy_(tab)
+            assert view.data_ptr() % 16
+            views.append(view)
+        args = (*views, *tabs[2:])
+        before = pm.proto_step.launches
+        got = pm.proto_step(*args)
+        torch.cuda.synchronize()
+        assert pm.proto_step.launches == before + 1
+        assert torch.equal(got, pm.proto_step_plain(*tabs))
+
+
 def test_diagnostics_on_card(cuda, tmp_path):
     t = dg.StageTimer()
     with t.stage("mm"):

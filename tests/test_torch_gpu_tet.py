@@ -34,6 +34,10 @@ CASES = {
     "odd_37x50": (4, 0.12, 3, 1, 0.9, 37, 50, 5),
     "outside": (5, 0.1, 8, 2, 3.0, 64, 64, 0),
 }
+# and for K3 a ragged image whose tile lists (180-1,482 slots) are walked
+# for a few of its 32-slot rounds, pixels stopping at a round's first slot
+# and inside rounds
+K3_CASES = {**CASES, "ragged_100x72": (8, 0.1, 8, 2, 2.0, 100, 72, 0)}
 
 
 @pytest.fixture
@@ -44,7 +48,7 @@ def cuda():
 
 
 def _scene(case):
-    n, jit, gseed, b, radius, h, w, seed = CASES[case]
+    n, jit, gseed, b, radius, h, w, seed = K3_CASES[case]
     verts, tets = freudenthal_grid(n, jitter=jit, seed=gseed)
     faces, face_tets, tet_faces = build_tet_connectivity(tets)
     rng = np.random.RandomState(33)
@@ -99,7 +103,7 @@ def _stages(t, h, w, seed):
     return s
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(K3_CASES))
 def test_first_hit_kernel_matches_plain(case, cuda):
     args, h, w, seed = _scene(case)
     t = tet_args_from_numpy(*args, device=cuda)
@@ -114,6 +118,46 @@ def test_first_hit_kernel_matches_plain(case, cuda):
     for g, p in zip(got[1:4], want[1:4]):
         assert float((g - p).abs().max()) <= 1e-6
     assert torch.equal(got[4], want[4])
+
+
+def test_first_hit_kernel_round_edges(cuda):
+    """K3 bit-equal to its plain version (all five outputs) at B=2 on a
+    ragged 100x72 image whose lists span many rounds: pixels that stop at
+    a round's first slot and inside a round, blocks that stop staging
+    early; with tile 0's list emptied, tile 1's one slot long, and the
+    rays of view 1's tile 2 turned around, so that its pixels all miss and
+    walk the whole list."""
+    args, h, w, seed = _scene("ragged_100x72")
+    s = _stages(tet_args_from_numpy(*args, device=cuda), h, w, seed)
+    starts, ends, slot_face, table, rd, B, _h, _w = s["fh_inputs"]
+    gy, gx = (h + 31) // 32, (w + 31) // 32
+    ends = ends.clone()
+    ends[0] = starts[0]
+    ends[1] = starts[1] + 1
+    rd = rd.clone()
+    rd[1, :32, 64:] = -rd[1, :32, 64:]
+    inputs = (starts, ends, slot_face, table, rd, B, h, w)
+    got = pfh.first_hit(*inputs)
+    torch.cuda.synchronize()
+    *want, visits = pfh.first_hit_plain(*inputs, with_visits=True)
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+    face, walked = want[0], want[4]
+    count = (ends - starts).reshape(B, gy, gx)
+    miss = gy * gx + 2  # view 1's tile 2
+    assert h % 32 and w % 32 and B == 2
+    assert int(walked[0, 0, 0]) == 0 and bool((face[0, :32, :32] == -1).all())
+    assert int(walked[0, 0, 1]) == 1
+    assert int(count.reshape(-1)[miss]) > 2 * pfh.ROUND
+    assert bool((face[1, :32, 64:] == -1).all())
+    assert int(walked.reshape(-1)[miss]) == int(count.reshape(-1)[miss])
+    tile_count = count[:, :, :, None, None].expand(B, gy, gx, 32, 32) \
+        .permute(0, 1, 3, 2, 4).reshape(B, gy * 32, gx * 32)[:, :h, :w]
+    stopped = visits < tile_count
+    assert int((stopped & (visits % pfh.ROUND == 0)).sum()) > 0
+    assert int((stopped & (visits % pfh.ROUND != 0)).sum()) > 0
+    assert int((stopped & (visits > 2 * pfh.ROUND)).sum()) > 0
+    assert bool((walked < count).any())
 
 
 @pytest.mark.parametrize("case", list(CASES))

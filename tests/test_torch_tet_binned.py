@@ -21,6 +21,7 @@ from dmesh_renderer_tpu_torch import TetRenderSettings, render_tet
 from dmesh_renderer_tpu_torch.convert import tet_args_from_numpy
 from dmesh_renderer_tpu_torch.ops import binning as tb
 from dmesh_renderer_tpu_torch.ops import geometry as tg
+from dmesh_renderer_tpu_torch.ops import rays as tr
 from dmesh_renderer_tpu_torch.ops import tet as pt
 from dmesh_renderer_tpu_torch.ops import tet_first_hit as pfh
 import test_golden_tet_adversarial as tga
@@ -91,30 +92,52 @@ def test_first_hit_plain_matches_jax(adv):
     assert int((ff >= 0).sum()) > 0.5 * ff.numel()
     assert_tuv_close((rt, iu, iv), got[1:4])
     assert bool(ovf) == bool(got[4][0]) and int(total) == int(got[4][1])
-    # each pair is staged by at most the 4 quarter blocks of its tile
-    assert 0 < int(walked) <= 4 * int(total)
+    # each pair is staged at most once, by its tile's block
+    assert 0 < int(walked) <= int(total)
 
 
-def test_first_hit_walked_rounds(adv):
-    """``walked`` of the plain version: each 16x16 quarter stages its
-    tile's list in 256-slot rounds until all of its pixels are done."""
+@pytest.mark.parametrize("h, w", [(H, W), (40, 72)])
+def test_first_hit_walked_rounds(adv, h, w):
+    """``walked`` of the plain version: each tile's block stages its list
+    in 32-slot rounds, the next one while it walks one, until at a round's
+    start all of its pixels are done. At the scene's 48x48 (JAX's rays)
+    and on a ragged 40x72 image (the port's rays), where tiles hold pixels
+    past the image edge and lists run past two rounds."""
     _sc, _func, _out, store, t = adv
-    args, _got = store["first_intersection_binned"][0]
-    ray_d = torch.from_numpy(np.array(args[5]))
-    pre = port_pre(t)
-    keys = tb.emit_and_sort(pre, 2, 2, 1 << 16, sort_by="min_depth")
+    gy, gx = (h + 31) // 32, (w + 31) // 32
+    if (h, w) == (H, W):
+        ray_d = torch.from_numpy(np.array(
+            store["first_intersection_binned"][0][0][5]))
+        pre = port_pre(t)
+    else:
+        ray_d = tr.generate_rays(t[6], t[7], w, h, norm_eps_mode="tet",
+                                 jitter_seed=SEED)[1]
+        ndc, img = tg.project_verts(t[0], t[4], t[5], w, h)
+        pre = tg.preprocess_faces(ndc, img, t[1], w, h, 32, 32)
+    keys = tb.emit_and_sort(pre, gx, gy, 1 << 16, sort_by="min_depth")
     table = pfh.build_first_hit_table(t[0], t[1], t[6][:, 3, :3],
                                       pre["min_depth"],
                                       pre["max_depth"])[keys.sigma]
-    *_res, walked = pfh.first_hit_plain(keys.starts, keys.ends,
-                                        keys.slot_face, table, ray_d, B, H, W)
-    count = (keys.ends - keys.starts).reshape(B, 2, 2)
-    count = count.repeat_interleave(2, 1).repeat_interleave(2, 2)
-    assert walked.shape == (B, 3, 3)
-    assert bool((walked <= count[:, :3, :3]).all())
-    assert bool(((walked % pfh.ROUND == 0) | (walked == count[:, :3, :3]))
-                .all())
-    assert bool((walked > 0).all())
+    *res, visits = pfh.first_hit_plain(keys.starts, keys.ends,
+                                       keys.slot_face, table, ray_d, B, h,
+                                       w, with_visits=True)
+    walked = res[4]
+    count = (keys.ends - keys.starts).reshape(B, gy, gx)
+    assert walked.shape == (B, gy, gx)
+    assert bool((walked <= count).all())
+    assert bool(((walked % pfh.ROUND == 0) | (walked == count)).all())
+    assert bool((walked[count > 0] > 0).all())
+    assert int(count.max()) > 2 * pfh.ROUND  # lists past two rounds
+    # the same count from the pixels: a pixel that tested k faces and
+    # stopped at slot k was done in round k // 32 (one that walked its
+    # whole list, in its last); the block walks until its last pixel is
+    # done and stages one round ahead
+    pad = visits.new_zeros((B, gy * 32, gx * 32))
+    pad[:, :h, :w] = visits
+    last = pad.reshape(B, gy, 32, gx, 32).amax(dim=(2, 4))
+    n_rounds = (count.long() + 31) // 32
+    rounds = torch.minimum(n_rounds, last // 32 + 2)
+    assert torch.equal(walked.long(), torch.minimum(count.long(), 32 * rounds))
 
 
 def test_forward_matches_jax(adv):
