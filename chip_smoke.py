@@ -1,5 +1,6 @@
 """Drive the torch port's tri renderer and tet renderer, forward and
-backward, on one CUDA card and check them.
+backward, their train steps on one process and on a 2-rank view mesh, and
+the example loops, on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -116,17 +117,40 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 22. a ``diagnostics.trace`` of one tet and one tri training frame, each
     timed by a ``StageTimer``: the device busy share, the device time the
     trace holds over the frame's time;
-23. print one JSON line of per-kernel numbers, and as the last line
+23. multi-view training: the sharded train steps (``mesh=``) of both
+    renderers on 2 ranks that share the card over gloo
+    (``parallel.spawn``, after the parent built every kernel), at the tri
+    headline at two views (``tri_scene(100_000, 2, 800, 800)``) and the tet
+    headline at two views (``tet_scene(20, 2, 800, 800)``, ray seed 3): one
+    SGD(1e-2) step against one process's B=2 step on the same batch (loss
+    rtol 1e-6 tri, 2e-5 tet; parameters rtol 2e-5, atol 1e-7; gradients
+    1e-4 rel), then two runs of 5 Adam(1e-2) steps: the loss falls, both
+    ranks' parameters are bitwise equal after every step, the second run
+    equals the first, and each rank launches K1 and K2 (tri), K3, K4 and K5
+    (tet) once per step (counts set to 0 just before each step; ``seg_sum``'s
+    count printed); the median ms of a sharded step (10 after 2 warm-ups)
+    and of the all-reduce alone, beside one process's B=2 step;
+24. checkpoint/resume at the tri (B=1) and tet headlines: 2 Adam steps,
+    save, restore into a fresh state, 2 more, bitwise equal to 4
+    uninterrupted steps;
+25. both example loops on the card (``examples/port_optimize_*.py``, the
+    tet one on 2 ranks): the loss falls, and the step resumed from the
+    midpoint checkpoint equals the uninterrupted run's;
+26. print one JSON line of per-kernel numbers, and as the last line
     ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, so the script exits non-zero and prints no result.
+Any failed check raises, so the script exits non-zero and prints no result;
+so does a rank that raises, dies or outlasts its time limit.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1899,10 +1923,353 @@ def diagnostics_phases(dev, tri_fargs, tet_head):
     return {"tri_render_stats": stats, "tet_health": health, "traces": out}
 
 
+# ---- multi-view training, checkpoint/resume, the example loops
+
+# The multi-view headlines: the tri and tet headline scenes at two views,
+# one per rank; the tet rays jittered (seed 3), so that each rank's view
+# offset keys its jitter. Both ranks share the one card, over gloo.
+MV_CFG = {"ranks": 2,
+          "tri": dict(n_tris=100_000, n_views=2, height=800, width=800,
+                      seed=0),
+          "tet": dict(n_grid=20, n_views=2, height=800, width=800,
+                      ray_seed=3)}
+MV_STEPS = 5  # Adam(1e-2) steps of each run, and runs of them
+MV_WARMUP, MV_TIMED = 2, 10  # sharded steps: warm-ups, then timed
+MV_TIMEOUT = 300.0  # seconds for the ranks' whole run
+# one process's B=2 step against the 2-rank step: JAX's test_sharding.py
+# tolerances (loss rtol 1e-6 tri, 2e-5 tet; parameters rtol 2e-5, atol
+# 1e-7), and the gradients at the binned path's 1e-4 rel
+MV_LOSS_RTOL = {"tri": 1e-6, "tet": 2e-5}
+# the kernels each rank must launch once per sharded step
+MV_KERNELS = {"tri": ("tri_fwd_composite", "tri_bwd_composite"),
+              "tet": ("tet_first_hit", "tet_fwd_march", "tet_bwd_march")}
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def launch_counters():
+    """Each main-path kernel wrapper, by the name the ``kernels`` line
+    gives it (``seg_sum`` once: the tri and tet reduces share it)."""
+    from dmesh_renderer_tpu_torch.ops import reduce as rd
+    from dmesh_renderer_tpu_torch.ops import tet, tet_first_hit
+    from dmesh_renderer_tpu_torch.ops import tri_binned as tb
+
+    return {"tri_fwd_composite": tb.fwd_composite,
+            "tri_bwd_composite": tb.bwd_composite, "seg_sum": rd.seg_sum,
+            "tet_first_hit": tet_first_hit.first_hit,
+            "tet_fwd_march": tet.fwd_march, "tet_bwd_march": tet.bwd_march}
+
+
+def mv_problem(kind, cfg, dev):
+    """The multi-view problem ``kind`` ("tri" or "tet") on ``dev``, every
+    view: (fresh(optimizer, mesh) -> TrainState, the step builder
+    mesh -> step, the B-view batch). Zero target and background."""
+    from dmesh_renderer_tpu_torch import parallel
+    from dmesh_renderer_tpu_torch.models import dmesh
+
+    c = cfg[kind]
+    H, W, B = c["height"], c["width"], c["n_views"]
+    zeros = torch.zeros(3, device=dev)
+    target = torch.zeros((B, 3, H, W), device=dev)
+    if kind == "tri":
+        user, fargs, _bg = scene_tensors(
+            c["n_tris"], B, H, W, c["seed"], dev)
+        leaves = (fargs[0], fargs[2], fargs[3])
+        batch = dmesh.ViewBatch(*fargs[4:10], target)
+
+        def make_step(mesh):
+            return dmesh.make_train_step(fargs[1], zeros, H, W, mesh=mesh)
+    else:
+        user, fargs, _bg = tet_user(c["n_grid"], B, 0.15, 2, dev)
+        leaves = (fargs[2], fargs[3])
+        batch = dmesh.TetViewBatch(*fargs[4:9], target)
+        geom = dmesh.TetGeometry(fargs[0], fargs[1], *fargs[9:12])
+
+        def make_step(mesh):
+            return dmesh.make_tet_train_step(geom, zeros, H, W, mesh=mesh,
+                                             seed=c["ray_seed"])
+
+    scene_type = dmesh.TriScene if kind == "tri" else dmesh.TetScene
+
+    def fresh(optimizer, mesh=None):
+        scene = scene_type(*(x.detach().clone().requires_grad_(True)
+                             for x in leaves))
+        if mesh is not None:
+            scene = parallel.replicate_params(mesh, scene)
+        return dmesh.init_train_state(scene, optimizer)
+
+    return fresh, make_step, batch
+
+
+def _sgd(params):
+    return torch.optim.SGD(params, lr=1e-2)
+
+
+def _adam(params):
+    return torch.optim.Adam(params, lr=1e-2)
+
+
+def digest(tensors):
+    """The bits of ``tensors``, hashed: equal digests, equal bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def median_ms(fn, dev, warmup=MV_WARMUP, reps=MV_TIMED):
+    """Median host ms of ``fn()`` over ``reps`` calls, each ended by a
+    device synchronisation, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    sync(dev)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def mv_rank():
+    """One rank of the multi-view phases: for each of tri and tet, one SGD
+    step, two runs of ``MV_STEPS`` Adam steps (each step's launch counts,
+    set to 0 just before it; loss; parameter digest), the sharded step's
+    median ms and the collective's alone."""
+    from dmesh_renderer_tpu_torch import parallel
+
+    started = time.time()
+    mesh = parallel.make_view_mesh()
+    dev = mesh.device
+    counters = launch_counters()
+    out = {"rank": mesh.rank, "size": mesh.size, "device": str(dev),
+           "started": started}
+    for kind in ("tri", "tet"):
+        fresh, make_step, batch = mv_problem(kind, MV_CFG, dev)
+        local = parallel.shard_view_batch(mesh, batch)
+        step = make_step(mesh)
+        r = {"local_views": int(local.mv_t.shape[0])}
+        st, loss = step(fresh(_sgd, mesh), local)
+        r["sgd"] = {"loss": float(loss),
+                    "scene": [p.detach().cpu() for p in st.scene],
+                    "grads": [p.grad.cpu() for p in st.scene]}
+        for run in range(2):
+            st = fresh(_adam, mesh)
+            losses, digests, counts = [], [], []
+            for _ in range(MV_STEPS):
+                for w in counters.values():
+                    w.launches = 0
+                st, loss = step(st, local)
+                sync(dev)
+                counts.append({k: w.launches for k, w in counters.items()})
+                losses.append(float(loss))
+                digests.append(digest(st.scene))
+            r[f"adam_{run}"] = {"losses": losses, "digests": digests,
+                                "launches": counts}
+        r["step_ms"] = median_ms(lambda: step(st, local), dev)
+        n = sum(p.numel() for p in st.scene) + (1 if kind == "tri" else 2)
+        flat = torch.ones(n, device=dev)
+        r["collective_ms"] = median_ms(
+            lambda: parallel.all_reduce(mesh, flat), dev)
+        r["collective_values"] = n
+        out[kind] = r
+        del st, local, batch
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["ended"] = time.time()
+    return out
+
+
+def multi_view_phases(dev):
+    """Phase 23: the sharded train steps of both renderers at the
+    multi-view headlines, on 2 ranks that share the card (gloo): each
+    rank's SGD step against one process's B=2 step on the same batch, the
+    Adam runs (falling loss; both ranks' bits equal after every step; the
+    second run equal to the first), the launches per rank per step, and the
+    times beside one process's B=2 step. Returns the numbers."""
+    from dmesh_renderer_tpu_torch import parallel
+
+    backend = parallel.default_backend(MV_CFG["ranks"], "cuda")
+    t0, wall0 = time.perf_counter(), time.time()
+    ranks = parallel.spawn(mv_rank, MV_CFG["ranks"], backend=backend,
+                           timeout=MV_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    start_s = max(r["started"] for r in ranks) - wall0
+    work_s = max(r["ended"] for r in ranks) - max(r["started"] for r in ranks)
+    check([r["rank"] for r in ranks] == list(range(MV_CFG["ranks"])),
+          "ranks missing")
+    out = {"ranks": MV_CFG["ranks"], "backend": backend,
+           "devices": [r["device"] for r in ranks], "spawn_s": spawn_s,
+           "rank_start_s": start_s, "rank_work_s": work_s}
+    for kind in ("tri", "tet"):
+        rs = [r[kind] for r in ranks]
+        fresh, make_step, batch = mv_problem(kind, MV_CFG, dev)
+        step = make_step(None)
+        st, loss = step(fresh(_sgd), batch)
+        want_loss = float(loss)
+        want = [p.detach().cpu() for p in st.scene]
+        want_g = [p.grad.cpu() for p in st.scene]
+        sgd = [r["sgd"] for r in rs]
+        check(all(s["loss"] == sgd[0]["loss"] for s in sgd)
+              and all(torch.equal(a, b) for s in sgd[1:]
+                      for a, b in zip(s["scene"], sgd[0]["scene"])),
+              f"{kind}: the ranks' parameters differ after the SGD step")
+        loss_rel = abs(sgd[0]["loss"] - want_loss) / abs(want_loss)
+        check(loss_rel <= MV_LOSS_RTOL[kind],
+              f"{kind}: sharded loss {sgd[0]['loss']} vs one process "
+              f"{want_loss}")
+        p_err = 0.0
+        for a, b in zip(sgd[0]["scene"], want):
+            check(bool(torch.isclose(a, b, rtol=2e-5, atol=1e-7).all()),
+                  f"{kind}: sharded parameters vs one process")
+            p_err = max(p_err, float((a - b).abs().max()))
+        g_err = max(rel(a, b) for a, b in zip(sgd[0]["grads"], want_g))
+        check(g_err <= GRAD_RTOL and all(bool(g.any()) for g in want_g),
+              f"{kind}: sharded gradients vs one process: {g_err}")
+        runs = [r[f"adam_{run}"] for r in rs for run in range(2)]
+        losses = runs[0]["losses"]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{kind}: sharded Adam loss did not fall: {losses}")
+        check(all(x["losses"] == losses and x["digests"] == runs[0]["digests"]
+                  for x in runs),
+              f"{kind}: the ranks' or the runs' bits differ after a step")
+        launches = [c for x in runs for c in x["launches"]]
+        per_step = {k: sorted({c[k] for c in launches})
+                    for k in MV_KERNELS[kind]}
+        for k in MV_KERNELS[kind]:
+            check(per_step[k] == [1],
+                  f"{kind}: {k} launched {[c[k] for c in launches]} times "
+                  f"per rank per step, not once")
+        seg = sorted({c["seg_sum"] for c in launches})
+        check(all(x >= 1 for x in seg), f"{kind}: seg_sum not launched")
+        st = fresh(_adam)
+        adam_ms = median_ms(lambda: step(st, batch), dev)
+        out[kind] = {
+            "local_views": [r["local_views"] for r in rs],
+            "sgd_loss": sgd[0]["loss"], "one_process_loss": want_loss,
+            "loss_rel_err": loss_rel, "param_max_abs_err": p_err,
+            "grad_rel_err": g_err, "adam_losses": losses,
+            "launches_per_rank_step": per_step,
+            "seg_sum_per_rank_step": seg,
+            "sharded_step_ms": [r["step_ms"] for r in rs],
+            "collective_ms": [r["collective_ms"] for r in rs],
+            "collective_values": rs[0]["collective_values"],
+            "one_process_b2_step_ms": adam_ms}
+        o = out[kind]
+        log(f"multi-view {kind} ({MV_CFG['ranks']} ranks on "
+            f"{o['local_views']} local views each, {out['backend']}, devices "
+            f"{out['devices']}): SGD step loss {o['sgd_loss']:.9g} vs one "
+            f"process's B={MV_CFG[kind]['n_views']} {want_loss:.9g} (rel "
+            f"{loss_rel:.3g}, tol {MV_LOSS_RTOL[kind]}); parameters max abs "
+            f"err {p_err:.3g} (rtol 2e-5, atol 1e-7); gradients rel "
+            f"{g_err:.3g} (tol {GRAD_RTOL}); Adam losses "
+            + ", ".join(f"{x:.6f}" for x in losses)
+            + f"; both ranks bitwise equal after every step, and a second "
+              f"run equal to the first; per rank per step "
+              + ", ".join(f"{k} {v}" for k, v in per_step.items())
+            + f", seg_sum {seg}")
+        log(f"multi-view {kind} timing (two ranks sharing one card: not a "
+            f"scaling number): sharded Adam step {o['sharded_step_ms']} ms "
+            f"(median of {MV_TIMED} after {MV_WARMUP}, per rank), of which "
+            f"the all-reduce of {o['collective_values']} f32 values alone "
+            f"{o['collective_ms']} ms (through the host, gloo); one "
+            f"process's B={MV_CFG[kind]['n_views']} Adam step "
+            f"{adam_ms:.3f} ms")
+    log(f"multi-view: the ranks' run took {spawn_s:.1f} s: {start_s:.1f} s "
+        f"until both ranks ran (process start, imports), {work_s:.1f} s of "
+        f"both renderers' phases")
+    return out
+
+
+def checkpoint_phases(dev):
+    """Phase 24: checkpoint/resume at the tri headline (B=1) and the tet
+    headline: 2 Adam steps, save, restore into a fresh state, 2 more steps,
+    bitwise equal to 4 uninterrupted steps."""
+    from dmesh_renderer_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    cfg = {"tri": {**HEADLINE}, "tet": {**TET_HEADLINE, "ray_seed": 0}}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("tri", "tet"):
+            fresh, make_step, batch = mv_problem(kind, cfg, dev)
+            step = make_step(None)
+            st, want = fresh(_adam), []
+            for _ in range(4):
+                st, loss = step(st, batch)
+                want.append(float(loss))
+            part, got = fresh(_adam), []
+            for _ in range(2):
+                part, loss = step(part, batch)
+                got.append(float(loss))
+            t0 = time.perf_counter()
+            path = save_checkpoint(f"{tmp}/{kind}.pt", part)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed = restore_checkpoint(path, fresh(_adam))
+            restore_s = time.perf_counter() - t0
+            for _ in range(2):
+                resumed, loss = step(resumed, batch)
+                got.append(float(loss))
+            sync(dev)
+            check(got == want and digest(resumed.scene) == digest(st.scene),
+                  f"{kind}: resumed run {got} differs from the "
+                  f"uninterrupted one {want}")
+            out[kind] = {"losses": want, "bytes": os.path.getsize(path),
+                         "save_s": save_s, "restore_s": restore_s}
+            log(f"checkpoint/resume at the {kind} headline: 2 Adam steps, "
+                f"save ({out[kind]['bytes']} bytes, {save_s:.3f} s), restore "
+                f"into a fresh state ({restore_s:.3f} s), 2 more: losses "
+                f"{got} and parameters bitwise equal to 4 uninterrupted "
+                f"steps")
+    return out
+
+
+def example_phases():
+    """Phase 25: both example loops on the card, the tet one on 2 ranks
+    sharing it: the loss falls, and the step resumed from the midpoint
+    checkpoint repeats the uninterrupted run's."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import port_optimize_tet
+    import port_optimize_triangles
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the tri example's 48 triangles take the dense oracle, whose
+        # backward walks the faces in Python (~0.3 s a step): 20 steps of it
+        for name, mod, ranks, steps in (
+                ("triangles", port_optimize_triangles, 1, 20),
+                ("tet", port_optimize_tet, 2, 60)):
+            t0 = time.perf_counter()
+            r = mod.main(["--device", "cuda", "--ranks", str(ranks),
+                          "--steps", str(steps), "--out-dir", tmp])
+            secs = time.perf_counter() - t0
+            losses = r["losses"]
+            mid = len(losses) // 2 + 1
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  f"example {name}: the loss did not fall: {losses}")
+            check(r["resumed_loss"] == losses[mid],
+                  f"example {name}: resumed step {r['resumed_loss']} != "
+                  f"{losses[mid]}")
+            out[name] = {"ranks": ranks, "steps": len(losses),
+                         "first_loss": losses[0], "last_loss": losses[-1],
+                         "seconds": secs}
+            log(f"example port_optimize_{name} on the card, {ranks} rank(s): "
+                f"loss {losses[0]:.6f} -> {losses[-1]:.6f} in {len(losses)} "
+                f"steps; resumed step equal to the uninterrupted one; "
+                f"{secs:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
     import dmesh_renderer_tpu_torch as port
     from dmesh_renderer_tpu_torch import kernels
     from dmesh_renderer_tpu_torch.models import dmesh
@@ -2281,6 +2648,16 @@ def main() -> int:
     split_us = launch_path_split(dev)
     tet_head["tri_user"] = user
     diag = diagnostics_phases(dev, fargs, tet_head)
+    t_new = time.perf_counter()
+    multi_view = multi_view_phases(dev)
+    ckpt = checkpoint_phases(dev)
+    examples = example_phases()
+    log(f"phases 23-25 took {time.perf_counter() - t_new:.1f} s; the script "
+        f"{time.perf_counter() - t_main:.1f} s until here")
+    sharded = {k: v for kind in ("tri", "tet")
+               for k, v in multi_view[kind]["launches_per_rank_step"].items()}
+    for entry in (*tet_kernels, k5_entry):
+        entry["launches_sharded_per_rank_step"] = sharded[entry["name"]]
 
     common = {"route": "cuda"}
     log(json.dumps({"kernels": [
@@ -2289,6 +2666,7 @@ def main() -> int:
          "replaces": "dmesh_renderer_tpu/ops/tri_binned.py:605",
          "launches": launches["tri_fwd_composite"],
          "launches_serving_path": fwd_launches,
+         "launches_sharded_per_rank_step": sharded["tri_fwd_composite"],
          "max_abs_err": max(err_small, err_head),
          "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -2302,6 +2680,7 @@ def main() -> int:
          "source": "dmesh_renderer_tpu_torch/csrc/tri_bwd.cu",
          "replaces": "dmesh_renderer_tpu/ops/tri_binned.py:797",
          "launches": launches["tri_bwd_composite"],
+         "launches_sharded_per_rank_step": sharded["tri_bwd_composite"],
          "max_abs_err": max(k2_err_s, k2_err_h),
          "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
@@ -2317,6 +2696,9 @@ def main() -> int:
                      "not a TPU kernel)",
          "launches": launches["seg_sum"],
          "launches_tet_train": tet_train_info["tet_seg_sum_launches"],
+         "launches_sharded_per_rank_step": {
+             k: multi_view[k]["seg_sum_per_rank_step"]
+             for k in ("tri", "tet")},
          "max_abs_err": max(ss_err,
                             tet_train_info["tet_seg_sum_max_abs_err"]),
          "ms": ss_ms, "plain_ms": ss_plain_ms, "bound_ms": ss_bound,
@@ -2333,6 +2715,7 @@ def main() -> int:
         "forward_no_grad_after_ms": fwd_nograd_ms, "train_step_ms": step_ms,
         "train_losses": losses, **tet_info, **tet_train_info,
         "diagnostics": diag, "launch_path_split_us": split_us,
+        "multi_view": multi_view, "checkpoint": ckpt, "examples": examples,
         "experiments": {k: _jsonable(v) for k, v in answers.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

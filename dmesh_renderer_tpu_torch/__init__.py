@@ -7,8 +7,10 @@ dense oracle and the tile-binned path, whose compositing forward and
 backward are the hand-written CUDA kernels ``csrc/tri_fwd.cu`` and
 ``csrc/tri_bwd.cu``; the tet renderer with the gradients of vertex colours
 and face opacities, whose binned first hit and ray march are the kernels of
-``csrc/tet_fwd.cu`` and whose backward march is ``csrc/tet_bwd.cu``; and
-the single-device train steps of both (``models/dmesh.py``).
+``csrc/tet_fwd.cu`` and whose backward march is ``csrc/tet_bwd.cu``; the
+train steps of both (``models/dmesh.py``), on one process or on a view mesh
+over ``torch.distributed`` (``parallel/``); and checkpoint/resume of a train
+state (``utils/checkpoint.py``).
 """
 
 from .api import (

@@ -12,8 +12,15 @@ Where the JAX package threads an optax state through a jitted pure step,
 the port keeps a ``torch.optim`` optimiser over the scene's leaf tensors in
 ``TrainState.opt_state`` and steps it in place: ``init_train_state`` builds
 it from a factory (``params -> optimizer``), and the step and the loop use
-it. Multi-device training (``mesh=``) is the ``torch.distributed`` slice of
-the port and raises ``NotImplementedError`` here.
+it.
+
+Multi-view training (``mesh=``, a ``parallel.make_view_mesh`` mesh): each
+rank renders its own views (``parallel.shard_view_batch``) with its own copy
+of the scene (``parallel.replicate_params``), runs backward, and the
+gradients of the view-shared parameters and the loss pieces are summed over
+the ranks by one all-reduce of one flat buffer per step, as the JAX
+package's ``shard_map`` steps do with ``pmean`` (tri) and ``psum`` (tet).
+Every rank then takes the same optimiser step on the same bits.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from ..ops.tet import render_tet_core
 from ..ops.tri import render_tri_auto
+from ..parallel.sharding import ViewMesh, all_reduce
 
 
 class TriScene(NamedTuple):
@@ -50,11 +58,33 @@ class TrainState(NamedTuple):
     opt_state: torch.optim.Optimizer   # steps ``scene`` in place
 
 
-def _no_mesh(mesh):
+def _check_mesh(mesh):
+    if mesh is not None and not isinstance(mesh, ViewMesh):
+        raise TypeError(
+            "mesh= takes the ViewMesh that parallel.make_view_mesh() "
+            f"returns, not a {type(mesh).__name__}")
+
+
+def _sum_over_views(mesh: ViewMesh | None, params, scalars, denom):
+    """The flat buffer [every param's gradient, *scalars], summed over the
+    mesh by one all-reduce (no collective without a mesh), divided by
+    ``denom(summed buffer)``: the divided gradients go into ``.grad``, and
+    the first divided scalar (the loss) is returned, copied out of the
+    buffer so that it does not keep the gradients alive. One collective of
+    one buffer keeps the sum's order fixed, every rank's bits equal and the
+    host cost of a step to one call."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [s.detach().reshape(1) for s in scalars])
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training (mesh=) is not ported yet: it lands with "
-            "the torch.distributed view sharding of the port")
+        flat = all_reduce(mesh, flat)
+    flat = flat / denom(flat)
+    off = 0
+    for p in params:
+        p.grad = flat[off:off + p.numel()].view_as(p)
+        off += p.numel()
+    return flat[off].clone()
 
 
 def render_views(scene: TriScene, faces, batch: ViewBatch, bg, height: int,
@@ -92,8 +122,12 @@ def make_train_step(faces, bg, height: int, width: int, mesh=None,
                     force: str | None = None, kcap: int | None = None):
     """``step(state, batch) -> (state, loss)``: one render, the loss, its
     five-gradient backward and one optimiser step on ``state.scene``.
-    ``loss`` is detached."""
-    _no_mesh(mesh)
+    ``loss`` is detached.
+
+    With ``mesh``, ``batch`` is this rank's views: the loss is each rank's
+    mean over its views, and the loss and the gradients are averaged over
+    the ranks (JAX's ``pmean``) before the step."""
+    _check_mesh(mesh)
     loss_fn = make_loss_fn(faces, bg, height, width, force=force, kcap=kcap)
 
     def step(state: TrainState, batch: ViewBatch):
@@ -101,8 +135,12 @@ def make_train_step(faces, bg, height: int, width: int, mesh=None,
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(state.scene, batch)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = _sum_over_views(mesh, list(state.scene), [loss],
+                                   lambda flat: mesh.size)
         opt.step()
-        return state, loss.detach()
+        return state, loss
 
     return step
 
@@ -185,20 +223,30 @@ def init_tet_train_state(
 
 def make_tet_train_step(geom: TetGeometry, bg, height: int, width: int,
                         mesh=None, seed: int = 0):
-    """``step(state, batch) -> (state, loss)``: one render, the masked mean
-    squared error ``se / max(count, 1)``, its backward and one optimiser
-    step on ``state.scene``. ``loss`` is detached."""
-    _no_mesh(mesh)
+    """``step(state, batch) -> (state, loss)``: one render, the backward
+    of the squared error, the loss and the gradients divided by
+    ``max(count, 1)`` (the masked mean squared error, as JAX's
+    ``_tet_normalize`` does it), and one optimiser step on
+    ``state.scene``. ``loss`` is detached.
+
+    With ``mesh``, ``batch`` is this rank's views, whose jitter (``seed`` >
+    0) is keyed by their global view index; the squared error, the count
+    and the gradients are summed over the ranks before the division by the
+    global ``max(count, 1)`` (JAX's ``psum``): per-view active counts
+    differ, so a mean of per-rank means would not be the global one."""
+    _check_mesh(mesh)
     se_fn = make_tet_se_fn(geom, bg, height, width, seed)
 
     def step(state: TrainState, batch: TetViewBatch):
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
-        se, cnt = se_fn(state.scene, batch)
-        loss = se / torch.clamp_min(cnt, 1.0)
-        loss.backward()
+        offset = None if mesh is None else mesh.rank * batch.mv_t.shape[0]
+        se, cnt = se_fn(state.scene, batch, offset)
+        se.backward()
+        loss = _sum_over_views(mesh, list(state.scene), [se, cnt],
+                               lambda flat: torch.clamp_min(flat[-1], 1.0))
         opt.step()
-        return state, loss.detach()
+        return state, loss
 
     return step
 

@@ -12,11 +12,15 @@ BLOCKED = ("jax", "jaxlib", "dmesh_renderer_tpu", "dmesh_renderer")
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("port_*.py")))
     assert len(files) > 10 and all(f.exists() for f in files)
     for part in ("tools/exp_round3.py", "tools/proto_march_kernel.py",
-                 "utils/diagnostics.py"):
+                 "utils/diagnostics.py", "parallel/sharding.py",
+                 "parallel/launch.py", "utils/checkpoint.py"):
         assert PORT / part in files, part
+    for name in ("port_optimize_triangles.py", "port_optimize_tet.py"):
+        assert ROOT / "examples" / name in files, name
     return files
 
 
@@ -83,6 +87,17 @@ st = dg.tri_render_stats(*[torch.from_numpy(x) for x in (v, f)],
                          torch.from_numpy(proj.transpose(0, 2, 1).copy()),
                          40, 40)
 assert st["num_rendered"] > 0 and dg.tet_health(a)["active_fraction"] > 0
+import os, tempfile
+from dmesh_renderer_tpu_torch import parallel
+from dmesh_renderer_tpu_torch.models import dmesh
+from dmesh_renderer_tpu_torch.utils import checkpoint as ck
+state = dmesh.init_tet_train_state(
+    dmesh.TetScene(tet_args[2], tet_args[3]), torch.optim.Adam)
+with tempfile.TemporaryDirectory() as d:
+    ck.restore_checkpoint(ck.save_checkpoint(os.path.join(d, "c"), state),
+                          state)
+sys.path.insert(0, "examples")
+import port_optimize_tet, port_optimize_triangles
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("OK")

@@ -127,10 +127,12 @@ def test_tet_train_loop_matches_steps(problem):
 
 
 def test_tet_mesh_raises(problem):
+    """``mesh=`` takes the view mesh of ``parallel.make_view_mesh``
+    (``tests/test_torch_sharding.py`` drives it); anything else raises."""
     geom, bg = _port_geom(problem), torch.from_numpy(problem["bg"])
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(TypeError, match="make_view_mesh"):
         tdm.make_tet_train_step(geom, bg, H, W, mesh=object())
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(TypeError, match="make_view_mesh"):
         tdm.make_tet_train_loop(geom, bg, H, W, 2, mesh=object())
 
 

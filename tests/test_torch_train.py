@@ -136,9 +136,11 @@ def test_train_loop_matches_steps(problem):
 
 
 def test_mesh_raises(problem):
+    """``mesh=`` takes the view mesh of ``parallel.make_view_mesh``
+    (``tests/test_torch_sharding.py`` drives it); anything else raises."""
     _scene, faces, _batch, bg = problem
     f, b = torch.from_numpy(faces), torch.from_numpy(bg)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(TypeError, match="make_view_mesh"):
         tdm.make_train_step(f, b, H, W, mesh=object())
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(TypeError, match="make_view_mesh"):
         tdm.make_train_loop(f, b, H, W, 2, mesh=object())
