@@ -1,6 +1,7 @@
 """Drive the torch port's tri renderer and tet renderer, forward and
-backward, their train steps on one process and on a 2-rank view mesh, and
-the example loops, on one CUDA card, and check them.
+backward, their train steps on one process and on a 2-rank view mesh, the
+example loops and the parity fuzz harnesses, on one CUDA card, check them,
+and time the dispatch thresholds' ladder.
 
     python3 chip_smoke.py
 
@@ -61,15 +62,26 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
     quarter, 256-slot rounds) and its current one (a block per 32x32 tile,
     32-slot rounds, the next one staged while one is walked) do with this
     run's data: the rows each stages beside the slots needed, the rounds
-    per tile, and the lane occupancy of their warps;
+    per tile, and the lane occupancy of their warps; then the card against
+    the CPU on the ragged 100x72 and odd 37x50 scenes of
+    ``tools.tet_stages`` (fault F4): the API's inverses
+    (``ops.geometry.inverse44``) bit-equal on both devices, beside the
+    solver's ``torch.linalg.inv``; every stage of the binned forward on
+    shared inputs bit for bit (``tet_stages.card_vs_cpu``: only the march
+    tables' log column and what K4 computes from it may differ); and the
+    render with each device's own solver inverses and with the API's,
+    whose colour and depth must hold 1e-5 with the mask and the saved
+    integer state exact;
 13. drive the tet serving path, ``TetRenderer`` on the card at the tet
     headline, counts set to 0 just before and read just after (K3 and K4
     once each); check the pair count (321,998, no overflow) and the
     first-hit pixels (577,342) exactly, and print the active pixels, the
-    longest walk and the blend events beside the JAX package's CPU values;
+    longest walk and the blend events beside the JAX package's CPU values,
+    and the active pixels with the card's ``torch.linalg.inv`` and with
+    LAPACK's in place of the API's inverses;
     time it (2 warm-up, 10 timed runs) and split it by stage;
-14. the tet edge cases on the card: the dense first hit (<= 2048 faces)
-    against the forced binned one, B=2 at the headline grid, jittered rays
+14. the tet edge cases on the card: the dense first hit against the
+    binned one, each forced, B=2 at the headline grid, jittered rays
     bit-equal to the CPU's, and the empty-geometry fill;
 15. hold the tet backward march kernel (K5, ``bwd_march``) against its plain
     version with a fixed random upstream gradient, keys, records, mismatch
@@ -113,7 +125,7 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
     over 2,000 calls, for the call path before the lean one (rebuilt from
     its pieces) and for ``kernels.launch`` now, beside ``torch.gather``;
 21. ``utils.diagnostics`` at the headlines: ``tri_render_stats`` (770,003
-    pairs, no overflow) and ``tet_health`` (577,334 active pixels);
+    pairs, no overflow) and ``tet_health`` (577,330 active pixels);
 22. a ``diagnostics.trace`` of one tet and one tri training frame, each
     timed by a ``StageTimer``: the device busy share, the device time the
     trace holds over the frame's time;
@@ -133,10 +145,21 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 24. checkpoint/resume at the tri (B=1) and tet headlines: 2 Adam steps,
     save, restore into a fresh state, 2 more, bitwise equal to 4
     uninterrupted steps;
-25. both example loops on the card (``examples/port_optimize_*.py``, the
-    tet one on 2 ranks): the loss falls, and the step resumed from the
-    midpoint checkpoint equals the uninterrupted run's;
-26. print one JSON line of per-kernel numbers, and as the last line
+25. both example loops on the card (``examples/port_optimize_*.py``, on 2
+    ranks each): the loss falls, and the step resumed from the midpoint
+    checkpoint equals the uninterrupted run's;
+26. both parity fuzz harnesses on the card (``tools.fuzz_tri_parity``:
+    the JAX sweep's 40 seeds from 1000 and 8 ``--big`` configs, K1, K2
+    and ``seg_sum`` against the dense oracle; ``tools.fuzz_tet_parity``:
+    30 seeds from 2000, each with the dense and the binned first hit
+    against the f64 spec, evaluated in a process pool, and 6 ``--big``
+    configs against the port on the CPU): any failure raises;
+27. the dispatch ladder: the dense path against the binned one, medians
+    of 10 synchronised calls after 2 warm-ups, forward and fwd+bwd; tri
+    at 8 to 1,024 faces at 64x64, 256x256 and 800x800, tet on
+    ``freudenthal_grid(2..8)`` at 256x256; the values the card's
+    thresholds take from it (fwd+bwd at 256x256) beside those set;
+28. print one JSON line of per-kernel numbers, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -194,8 +217,11 @@ FACE_ROW_BYTES = (27 + 9) * 4 + 4  # f32 + i32 face row, and its slot_face
 # headline is the JAX package's tet bench scene (bench.py, bench_tet_scaled)
 TET_HEADLINE = dict(n_grid=20, n_views=1, height=800, width=800)
 TET_SMALL = (6, 0.14, 21, 2, 256, 256, 17)
-TET_DENSE = (5, 0.1, 8, 2, 256, 256, 0)  # 1,950 faces: the dense first hit
+TET_DENSE = (5, 0.1, 8, 2, 256, 256, 0)  # 1,650 faces, both first hits forced
 TET_RAGGED = (8, 0.1, 8, 2, 100, 72, 5)  # K3/K4 on an image of partial tiles
+# the card against the CPU stage by stage (fault F4): scenes of
+# dmesh_renderer_tpu_torch.tools.tet_stages.CASES
+F4_CASES = ("ragged_100x72", "odd_37x50")
 # Facts of the tet headline, not times: the (face, tile) pairs of its bbox
 # emission at 32-px tiles (the JAX package's count), and the pixels with a
 # first hit, which no transcendental enters, so the count is exact
@@ -230,13 +256,21 @@ K5_REC_BYTES = 4 + 10 * 4
 # the card's tet gradients against the port's on the CPU, rel Linf: the two
 # devices' exp and log differ in the last bits (hazard g)
 TET_CARD_CPU_RTOL = 1e-5
+# the tet render on the card against the CPU: colour and depth (the two
+# devices' log and exp differ in the last bits)
+TET_CARD_CPU_ATOL = 1e-5
 # The experiment kernels' shapes (the JAX tools' full sizes): T1's table
 # rows and lookup rows (8, the TPU's; 5,000 rows of 128, the march width),
 # the rays of T2-T4 and T4's chained steps
 PROBE_TABLE_ROWS = (8, 32, 64, 512, 48_000)
 PROBE_LOOKUP_ROWS = (8, 5_000)
 PROBE_RAYS = 640_000
-TET_HEADLINE_ACTIVE = 577_334  # active pixels of the tet headline on the card
+# active pixels of the tet headline on the card and on the CPU, with the
+# API's inverses (inverse44, bit-equal on both). A ray grazing an edge
+# moves with the last bit of the inverse: 577,334 with the card's
+# torch.linalg.inv, 577,329 with LAPACK's, 577,337 in the JAX package on
+# the CPU (step 13 prints them)
+TET_HEADLINE_ACTIVE = 577_330
 # f32 operations per ray: T3 (shade select 4 x 12 multiply-adds, 4
 # compares, colour 21, weight 1, the walk step, outputs 9) and T4 (the walk
 # step, colour 21, weight 1, depth 6, log T 1, exp 1, compare 1,
@@ -249,7 +283,23 @@ OPS_T4_RAY = OPS_PER_WALK + 21 + 1 + 6 + 1 + 1 + 1 + 8 + 1
 T3_RAY_BYTES = 4 + 6 * 4 + 16 * 4 + 17 * 4
 T4_RAY_BYTES = 4 + 4 + 10 * 4 + 15 * 4 + 16 * 4
 TRACE_DIR = Path(__file__).resolve().parent / ".traces"
+# the dispatch ladder: dense against binned at these face counts and image
+# sides (tri) and grids (tet, at LADDER_SIDE); medians of LADDER_TIMED
+# after LADDER_WARMUP; the dense path is no longer timed after two points
+# in a row at which it was LADDER_GIVE_UP times slower. The thresholds are
+# read from fwd+bwd at LADDER_SIDE x LADDER_SIDE.
+TRI_LADDER_FACES = (8, 16, 48, 128, 256, 512, 1024)
+TRI_LADDER_SIZES = (64, 256, 800)
+TET_LADDER_GRIDS = (2, 3, 4, 5, 6, 8)
+LADDER_SIDE = 256
+LADDER_WARMUP, LADDER_TIMED = 2, 10
+LADDER_GIVE_UP = 4.0
+# the fuzz sweeps: (first seed, configs) of the JAX harnesses' defaults,
+# and the configs of their --big sweeps
+FUZZ_TRI, FUZZ_TET = (1000, 40), (2000, 30)
+FUZZ_BIG_TRI, FUZZ_BIG_TET = 8, 6
 LAUNCH_CALLS = 2000  # calls per mean in the launch path's split
+PROFILE_WINDOWS = 6  # profiler windows tried for a kernel's device time
 
 
 def log(*a):
@@ -358,19 +408,21 @@ def ptxas_usage(logs, kernel):
 
 def scene_tensors(n_tris, n_views, height, width, seed, dev):
     """Headline-style scene as CUDA tensors: (user inputs of TriRenderer,
-    transposed functional args incl. inverses, bg)."""
+    transposed functional args incl. inverses as the API takes them,
+    bg)."""
     from dmesh_renderer_tpu_torch.utils.scenes import tri_scene
 
     v, f, vc, fo, mv, proj, vd, fi = tri_scene(n_tris, n_views, height,
                                                width, seed)
+    from dmesh_renderer_tpu_torch.api import _inverses
+
     user = [torch.from_numpy(x).to(dev) for x in (v, f, vc, fo, mv, proj,
                                                   vd, fi)]
     mv_t = user[4].transpose(1, 2).contiguous()
     proj_t = user[5].transpose(1, 2).contiguous()
     bg = torch.tensor([0.1, 0.1, 0.1], device=dev)
     fargs = (user[0], user[1], user[2], user[3], mv_t, proj_t,
-             torch.linalg.inv(mv_t), torch.linalg.inv(proj_t), user[6],
-             user[7], bg)
+             *_inverses(mv_t, proj_t), user[6], user[7], bg)
     return user, fargs, bg
 
 
@@ -665,6 +717,7 @@ def leaves_of(user):
 def tet_user(n_grid, n_views, jitter, gseed, dev, seed_offset=0):
     """A tet scene as CUDA tensors: (user inputs of TetRenderer, the
     functional args with transposed matrices and inverses, bg)."""
+    from dmesh_renderer_tpu_torch.api import _inverses
     from dmesh_renderer_tpu_torch.utils import connectivity, scenes
 
     if (jitter, gseed) == (0.15, 2):
@@ -687,89 +740,9 @@ def tet_user(n_grid, n_views, jitter, gseed, dev, seed_offset=0):
     mv_t = user[4].transpose(1, 2).contiguous()
     proj_t = user[5].transpose(1, 2).contiguous()
     fargs = (user[0], user[1], user[2], user[3], mv_t, proj_t,
-             torch.linalg.inv(mv_t), torch.linalg.inv(proj_t), user[7],
+             *_inverses(mv_t, proj_t), user[7],
              user[8], user[9], user[10], bg)
     return user, fargs, bg
-
-
-def tet_stages(fargs, h, w, seed=0):
-    """The tet forward's stages (the sequence of
-    ops.tet.render_tet_forward on its binned path), one function each, so
-    that each can be timed; and the inputs of K3 and K4."""
-    from dmesh_renderer_tpu_torch.ops import binning, geometry, rays
-    from dmesh_renderer_tpu_torch.ops import tet as pt
-    from dmesh_renderer_tpu_torch.ops import tet_first_hit as pfh
-
-    (verts, faces, vc, fo, mv_t, proj_t, inv_mv_t, inv_proj_t, fi, tets,
-     face_tets, tet_faces, bg) = fargs
-    B, F = mv_t.shape[0], faces.shape[0]
-    N, M = h * w, mv_t.shape[0] * h * w
-    gx, gy = (w + 31) // 32, (h + 31) // 32
-    kcap = binning.default_key_capacity(B, F, avg_tiles_per_face=5)
-    cam_o = inv_mv_t[:, 3, :3].contiguous()
-    st = {}
-
-    def project():
-        ndc, img = geometry.project_verts(verts, mv_t, proj_t, w, h)
-        st["pre"] = geometry.preprocess_faces(ndc, img, faces, w, h, 32, 32)
-
-    def binning_():
-        st["keys"] = binning.emit_and_sort(st["pre"], gx, gy, kcap,
-                                           sort_by="min_depth")
-
-    def table():
-        st["table"] = pfh.build_first_hit_table(
-            verts, faces, cam_o, st["pre"]["min_depth"],
-            st["pre"]["max_depth"])[st["keys"].sigma]
-
-    def rays_():
-        st["rd"] = rays.generate_rays(inv_mv_t, inv_proj_t, w, h,
-                                      norm_eps_mode="tet",
-                                      jitter_seed=seed or None)[1]
-
-    def fh_inputs():
-        k = st["keys"]
-        return (k.starts, k.ends, k.slot_face, st["table"], st["rd"], B, h, w)
-
-    def k3():
-        st["fh"] = pfh.first_hit(*fh_inputs())
-
-    def tables():
-        st["march"] = m = pt.march_tables(verts, faces, tets, tet_faces,
-                                          face_tets, vc, fo, fi)
-        st["ff"] = st["fh"][0].reshape(M)
-        st["first_tet"] = pt.start_tets(st["ff"], st["rd"].reshape(M, 3),
-                                        m["geo"], m["sign"], face_tets,
-                                        tet_faces)
-        st["zw"] = pt.projective_zw(cam_o, st["rd"].reshape(B, N, 3), mv_t,
-                                    proj_t)
-        st["tuv"] = torch.stack([x.reshape(M) for x in st["fh"][1:4]])
-
-    def march_inputs():
-        m = st["march"]
-        return (st["rd"].reshape(M, 3), cam_o, st["zw"], st["ff"],
-                st["first_tet"], st["tuv"], m["tet_geo"], m["tet_nrm"],
-                m["tet_ids"], m["shade"], h, w)
-
-    def k4():
-        st["out"] = pt.fwd_march(*march_inputs())
-
-    def assemble():
-        out_f, out_i = st["out"]
-        act = out_i[3] != 0
-        final_T = torch.exp(out_f[4])
-        col = [torch.where(act, out_f[c] + final_T * bg[c], bg[c])
-               for c in range(3)]
-        st["image"] = (
-            torch.stack(col).reshape(3, B, h, w).transpose(0, 1).contiguous(),
-            torch.where(act, out_f[3] + final_T * 1.0, 1.0).reshape(
-                B, 1, h, w), act.reshape(B, h, w))
-
-    seq = [("projection+preprocess", project), ("binning", binning_),
-           ("first-hit table", table), ("rays", rays_), ("K3", k3),
-           ("march tables+start tet", tables), ("K4", k4),
-           ("assembly", assemble)]
-    return seq, st, fh_inputs, march_inputs
 
 
 def compare_tet_kernels(fh_inputs, march_inputs, label):
@@ -860,6 +833,85 @@ def k3_shapes(fh_inputs, walked, visits):
     }
 
 
+def tet_card_vs_cpu(dev, case):
+    """Fault F4: a scene of ``tools.tet_stages.CASES`` on the card and on
+    the CPU. (1) The inverses of the matrices on each device: the API's
+    (``api._inverses``) must be bit-equal, the solver's
+    (``torch.linalg.inv``, which the API used before) are printed; (2)
+    every stage of the binned forward from the same inputs on both
+    devices, each output bit for bit (``tet_stages.card_vs_cpu``): only
+    the march tables' log column and what K4 computes from it may differ;
+    (3) the render with each device's own inverses, the solver's and the
+    API's: the largest colour and depth errors, the pixels over
+    ``TET_CARD_CPU_ATOL``, the ``active`` mask and the saved integer
+    state. With the API's inverses the render must hold
+    ``TET_CARD_CPU_ATOL`` with the mask and the integer state exact.
+    Returns a dict of the findings."""
+    from dmesh_renderer_tpu_torch.api import _inverses
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+    from dmesh_renderer_tpu_torch.tools import tet_stages as ts
+
+    cpu = torch.device("cpu")
+    args, h, w, seed = ts.scene(case)
+    on = {d: [torch.from_numpy(np.ascontiguousarray(x)).to(d) for x in args]
+          for d in (dev, cpu)}
+    inv = {"solver": {d: [torch.linalg.inv(on[d][i]) for i in (4, 5)]
+                      for d in (dev, cpu)},
+           "api": {d: list(_inverses(*on[d][4:6])) for d in (dev, cpu)}}
+    inv_diff = {k: [ts.differ(v[dev][i], v[cpu][i]) for i in (0, 1)]
+                for k, v in inv.items()}
+    first, differing = ts.card_vs_cpu(dev, args, h, w, seed)
+    torch.cuda.synchronize()
+
+    def render(d, inverses):
+        fa = list(on[d])
+        fa[6], fa[7] = inverses
+        with pt.first_hit_path("binned"):
+            c, dp, act, sv = pt.render_tet_forward(*fa, h, w, seed)
+        return [x.cpu() for x in (c, dp, act)], {
+            k: sv[k].cpu() for k in ("first_face", "last_face", "last_tet",
+                                     "n_contrib")}
+
+    out = {"case": case, "first_stage_not_bit_equal": first,
+           "stages_differing": differing}
+    for key, by_dev in inv.items():
+        want, want_sv = render(cpu, by_dev[cpu])
+        got, got_sv = render(dev, by_dev[dev])
+        over = ((got[0] - want[0]).abs().amax(dim=1) > TET_CARD_CPU_ATOL) | (
+            (got[1] - want[1]).abs()[:, 0] > TET_CARD_CPU_ATOL)
+        out[f"{key}_inverses"] = {
+            "bit_equal": [e for e, _ in inv_diff[key]],
+            "max_diff": [f for _, f in inv_diff[key]],
+            "colour_max_err": float((got[0] - want[0]).abs().max()),
+            "depth_max_err": float((got[1] - want[1]).abs().max()),
+            "pixels_over_tol": int(over.sum()),
+            "active_differ": int((got[2] != want[2]).sum()),
+            "saved_int_differ": {k: int((got_sv[k] != want_sv[k]).sum())
+                                 for k in want_sv}}
+    log(f"F4 [{case}]: stages on shared inputs: first not bit-equal: "
+        f"{first}; differing: "
+        + (", ".join(f"{n} ({f:.3g})" for n, f in differing) or "none"))
+    for key in ("solver_inverses", "api_inverses"):
+        r = out[key]
+        log(f"F4 [{case}] {key}: card vs CPU bit-equal {r['bit_equal']} "
+            f"(max diff {r['max_diff']}); render: colour max err "
+            f"{r['colour_max_err']:.3g}, depth max err "
+            f"{r['depth_max_err']:.3g}, pixels over {TET_CARD_CPU_ATOL} "
+            f"{r['pixels_over_tol']}, active differs on "
+            f"{r['active_differ']} px, saved integer state differs on "
+            f"{r['saved_int_differ']}")
+    check(not ts.not_transcendental(differing),
+          f"F4 [{case}]: a stage without a transcendental differs card vs "
+          f"CPU: {ts.not_transcendental(differing)}")
+    r = out["api_inverses"]
+    check(all(r["bit_equal"]),
+          f"F4 [{case}]: the API's inverses differ card vs CPU: {r}")
+    check(r["pixels_over_tol"] == 0 and r["active_differ"] == 0
+          and not any(r["saved_int_differ"].values()),
+          f"F4 [{case}]: the render on the card is not the CPU's: {r}")
+    return out
+
+
 def tet_phases(dev):
     """Phases 12-14: the tet kernels, the tet serving path and its edge
     cases. Returns (the kernels' JSON entries, a dict of tet numbers)."""
@@ -868,11 +920,12 @@ def tet_phases(dev):
     from dmesh_renderer_tpu_torch.ops import tet as pt
     from dmesh_renderer_tpu_torch.ops import tet_first_hit as pfh
     from dmesh_renderer_tpu_torch.ops import tri_binned as tb
+    from dmesh_renderer_tpu_torch.tools import tet_stages as ts
 
     # ---- K3 and K4 against plain: the small scene, then the headline
     n, jit, gs, b, hs, ws, seed = TET_SMALL
     _u, fs, _bg = tet_user(n, b, jit, gs, dev)
-    seq_s, _st, fh_s, mi_s = tet_stages(fs, hs, ws, seed)
+    seq_s, _st, fh_s, mi_s = ts.stages(fs, hs, ws, seed)
     for _n, fn in seq_s[:-1]:
         fn()
     err_s, _g3, _v, _g4, eq_s = compare_tet_kernels(
@@ -880,17 +933,20 @@ def tet_phases(dev):
     # a ragged image (no multiple of 32): tiles with pixels past the edge
     n, jit, gs, b, hs, ws, seed = TET_RAGGED
     _u, fr, _bg = tet_user(n, b, jit, gs, dev)
-    seq_r, _st, fh_r, mi_r = tet_stages(fr, hs, ws, seed)
+    seq_r, _st, fh_r, mi_r = ts.stages(fr, hs, ws, seed)
     for _n, fn in seq_r[:-1]:
         fn()
     err_r, _g3, _v, _g4, eq_r = compare_tet_kernels(
         fh_r(), mi_r(), f"freudenthal_grid({n}), {hs}x{ws}, B=2, seed {seed}")
     err_s = max(err_s, err_r)
     eq_s = (eq_s[0] and eq_r[0], eq_s[1] and eq_r[1])
+    # fault F4: the card against the CPU, stage by stage, on the GPU tests'
+    # ragged and odd scenes
+    f4 = {case: tet_card_vs_cpu(dev, case) for case in F4_CASES}
 
     H, W = TET_HEADLINE["height"], TET_HEADLINE["width"]
     user, fargs, bg = tet_user(TET_HEADLINE["n_grid"], 1, 0.15, 2, dev)
-    seq, st, fh_in, m_in = tet_stages(fargs, H, W)
+    seq, st, fh_in, m_in = ts.stages(fargs, H, W)
     for _n, fn in seq[:-1]:
         fn()
     err_h, g3, visits, g4, eq_h = compare_tet_kernels(fh_in(), m_in(),
@@ -1042,20 +1098,30 @@ def tet_phases(dev):
         f"{int(cpu_nc.sum())}; {n_diff} pixels differ in n_contrib or "
         f"active, {n_near} of them with log T within 1e-5 of log(T_EPS) on "
         f"a device (the two devices' exp/log differ in the last bits)")
+    # the active pixels with other inverses of the same matrices: the
+    # card's solver (the API's before F4) and LAPACK's, beside the API's
+    # (inverse44) and JAX's on the CPU; a ray that grazes an edge moves
+    # with the last bit of the inverse
+    act_by_inverse = {"api inverse44": n_act}
+    for name, inv in (("card torch.linalg.inv", torch.linalg.inv),
+                      ("CPU LAPACK", lambda m: torch.linalg.inv(m.cpu()))):
+        fa = list(fargs)
+        fa[6], fa[7] = (inv(x).to(dev) for x in fargs[4:6])
+        act_by_inverse[name] = int(
+            pt.render_tet_forward(*fa, H, W, 0)[2].sum())
+    log(f"tet headline active pixels by inverse: {act_by_inverse} (JAX on "
+        f"the CPU: {JAX_CPU_ACTIVE})")
 
     # ---- the tet edge cases on the card
     n, jit, gs, b, hd, wd, _seed = TET_DENSE
     ud, fd, _bgd = tet_user(n, b, jit, gs, dev, seed_offset=1)
-    check(fd[1].shape[0] <= pt.BINNED_FIRST_HIT_THRESHOLD, "dense scene size")
-    dense = pt.render_tet_forward(*fd, hd, wd, 0)
-    saved_thr = pt.BINNED_FIRST_HIT_THRESHOLD
-    pt.BINNED_FIRST_HIT_THRESHOLD = 1
-    try:
-        before = pfh.first_hit.launches
+    before = pfh.first_hit.launches
+    with pt.first_hit_path("dense"):
+        dense = pt.render_tet_forward(*fd, hd, wd, 0)
+    check(pfh.first_hit.launches == before, "forced dense: K3 launched")
+    with pt.first_hit_path("binned"):
         binned = pt.render_tet_forward(*fd, hd, wd, 0)
-        check(pfh.first_hit.launches == before + 1, "forced binned: no K3")
-    finally:
-        pt.BINNED_FIRST_HIT_THRESHOLD = saved_thr
+    check(pfh.first_hit.launches == before + 1, "forced binned: no K3")
     check(torch.equal(dense[2], binned[2]), "dense vs binned active differ")
     for k in ("first_face", "last_face", "last_tet", "n_contrib"):
         check(torch.equal(dense[3][k], binned[3][k]), f"dense vs binned {k}")
@@ -1087,7 +1153,8 @@ def tet_phases(dev):
     check(bool((ce == bg[None, :, None, None]).all() and (de == 1).all()
                and not ae.any()) and (bool(oe), int(ne)) == (False, 0),
           "empty tet geometry must give bg, depth 1, inactive, (False, 0)")
-    log(f"tet edge cases: dense (F={fd[1].shape[0]}) vs forced binned at "
+    log(f"tet edge cases: forced dense (F={fd[1].shape[0]}) vs forced "
+        f"binned at "
         f"{hd}x{wd}, B=2: active and saved state equal, colour/depth "
         f"max_abs_err {e_db:.3g}; B=2 headline grid ok (view 0 active equal "
         f"to B=1); jittered rays card == CPU (seed 17, view_offset 3); empty "
@@ -1114,11 +1181,13 @@ def tet_phases(dev):
          "bound_ms": k4_bound, "bound_by": k4_by,
          "bound_rebuilt_normals_ms": k4_rebuild_ms,
          "bit_equal": bool(eq_s[1] and eq_h[1]), "blends": blends,
-         "walk_steps": walks, "active": n_act, "max_walk": max_walk},
+         "walk_steps": walks, "active": n_act, "max_walk": max_walk,
+         "active_by_inverse": act_by_inverse},
     ]
     info = {"tet_forward_ms": tet_ms, "tet_forward_split_ms": split,
             "tet_forward_peak_mib": tet_peak / 2**20,
-            "tet_card_vs_cpu_pixels": [n_diff, n_near]}
+            "tet_card_vs_cpu_pixels": [n_diff, n_near],
+            "tet_card_vs_cpu_stages": f4}
     head = {"user": user, "fargs": fargs, "bg": bg, "renderer": renderer,
             "u2": u2, "small": fs}
     return kernels, info, head
@@ -1445,10 +1514,11 @@ def profiled_device_ms(fn, kernel, reps=10, per_call=1):
     fn()
     torch.cuda.synchronize()
     # The profiler has been seen to return a window without some or all of
-    # its device records (0, 7 or 8 of 10 launches). The mean is taken over
-    # the launches a window holds, and said when some are missing; a window
-    # that holds none is taken again, at most twice.
-    for attempt in range(3):
+    # its device records (0, 7 or 8 of 10 launches; three empty windows in
+    # a row once). The mean is taken over the launches a window holds, and
+    # said when some are missing; a window that holds none is taken again,
+    # at most PROFILE_WINDOWS times in all.
+    for attempt in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -2035,6 +2105,167 @@ def median_ms(fn, dev, warmup=MV_WARMUP, reps=MV_TIMED):
     return float(np.median(times))
 
 
+def _ladder(points, time_pair):
+    """Time the dense and the binned path at each of ``points`` (rising
+    face counts): ``time_pair(point, path)`` gives the path's ms. Once the
+    dense path was ``LADDER_GIVE_UP`` times slower than the binned one at
+    two points in a row, it is not timed at the larger ones (its cost
+    rises with the face count: a Python loop over the faces). Returns
+    {point: {"dense": ms or None, "binned": ms}}."""
+    out, lost = {}, 0
+    for p in points:
+        binned, dense = time_pair(p, "binned"), None
+        if lost < 2:
+            dense = time_pair(p, "dense")
+            lost = lost + 1 if dense > LADDER_GIVE_UP * binned else 0
+        out[p] = {"dense": dense, "binned": binned}
+    return out
+
+
+def _crossover(row):
+    """The largest face count at which the dense path was faster (0 if it
+    never was)."""
+    won = [p for p, t in row.items()
+           if t["dense"] is not None and t["dense"] < t["binned"]]
+    return max(won, default=0)
+
+
+def dispatch_ladder(dev):
+    """The dense path against the binned one on the card, for the
+    dispatch thresholds: tri (``render_tri_auto(force=...)``, B=1,
+    ``tri_scene``) at ``TRI_LADDER_FACES`` and ``TRI_LADDER_SIZES``; tet
+    (``TetRenderer``, the dense first hit against the binned one forced)
+    on ``freudenthal_grid(n)`` at ``TET_LADDER_GRIDS``, ``LADDER_SIDE``
+    squared; each the
+    forward without gradients and fwd+bwd of sum(color) + sum(depth),
+    ``median_ms`` of ``LADDER_TIMED`` calls after ``LADDER_WARMUP``, both
+    paths in this run. Returns the ladders and
+    the values they give beside the values set."""
+    import dmesh_renderer_tpu_torch as port
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+    from dmesh_renderer_tpu_torch.ops import tri as ptri
+    from dmesh_renderer_tpu_torch.ops.tri import render_tri_auto
+
+    t0 = time.perf_counter()
+    tri = {}
+    for size in TRI_LADDER_SIZES:
+        scenes = {}
+
+        def tri_time(F, path, grad):
+            if F not in scenes:
+                scenes[F] = scene_tensors(F, 1, size, size, 0, dev)
+            user, fargs, _bg = scenes[F]
+            force = "oracle" if path == "dense" else "binned"
+            if not grad:
+                def run():
+                    with torch.no_grad():
+                        render_tri_auto(*fargs, size, size, force=force)
+            else:
+                def run():
+                    lv = leaves_of(user)
+                    c, d = render_tri_auto(lv[0], fargs[1], lv[1], lv[2],
+                                           *fargs[4:8], lv[3], lv[4],
+                                           fargs[10], size, size, force=force)
+                    (c.sum() + d.sum()).backward()
+            return median_ms(run, dev, LADDER_WARMUP, LADDER_TIMED)
+
+        for grad in (False, True):
+            tri[f"{size}x{size} {'fwd+bwd' if grad else 'fwd'}"] = _ladder(
+                TRI_LADDER_FACES, lambda F, p: tri_time(F, p, grad))
+    tri_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    tet, tet_faces = {}, {}
+    S = LADDER_SIDE
+    renderer = port.TetRenderer(port.TetRenderSettings(S, S, np.array(
+        [0.1, 0.2, 0.3], np.float32)), device=dev)
+    users = {}
+
+    def tet_time(n, path, grad):
+        if n not in users:
+            users[n] = tet_user(n, 1, 0.15, 2, dev)[0]
+            tet_faces[n] = int(users[n][1].shape[0])
+        u = users[n]
+
+        def run():
+            with pt.first_hit_path(path):
+                if not grad:
+                    with torch.no_grad():
+                        renderer(*u)
+                    return
+                vc, fo = (x.clone().requires_grad_(True) for x in u[2:4])
+                c, d, _a = renderer(u[0], u[1], vc, fo, *u[4:])
+                (c.sum() + d.sum()).backward()
+        return median_ms(run, dev, LADDER_WARMUP, LADDER_TIMED)
+
+    for grad in (False, True):
+        tet[f"{S}x{S} {'fwd+bwd' if grad else 'fwd'}"] = _ladder(
+            TET_LADDER_GRIDS, lambda n, p: tet_time(n, p, grad))
+    tet_s = time.perf_counter() - t1
+
+    key = f"{S}x{S} fwd+bwd"
+    tri_value = _crossover(tri[key])
+    tet_n = _crossover(tet[key])
+    tet_value = tet_faces[tet_n] if tet_n else 0
+    def ms(x):
+        return "not timed" if x is None else f"{x:.3f}"
+
+    for name, rows, label in (("tri", tri, "F"), ("tet", tet, "grid n")):
+        for k, row in rows.items():
+            log(f"ladder {name} {k} (ms, dense / binned by {label}"
+                + (", faces " + str(tet_faces) if name == "tet" else "")
+                + "): " + "; ".join(f"{p}: {ms(t['dense'])} / "
+                                    f"{ms(t['binned'])}"
+                                    for p, t in row.items()))
+    others = {k: _crossover(r) for k, r in tri.items()}
+    log(f"ladder: the card's values from this run, the largest face count "
+        f"at which the dense path is faster in fwd+bwd at {S}x{S}: tri "
+        f"{tri_value} (set: BINNED_THRESHOLD_GPU = "
+        f"{ptri.BINNED_THRESHOLD_GPU}), tet {tet_value} (set: "
+        f"BINNED_FIRST_HIT_THRESHOLD_GPU = "
+        f"{pt.BINNED_FIRST_HIT_THRESHOLD_GPU}); tri at every size and mode "
+        f"{others}; tet {({k: _crossover(r) for k, r in tet.items()})} "
+        f"(grid n); {tri_s:.1f} s tri, {tet_s:.1f} s tet")
+    return {"tri": {k: {str(p): t for p, t in r.items()}
+                    for k, r in tri.items()},
+            "tet": {k: {str(p): t for p, t in r.items()}
+                    for k, r in tet.items()},
+            "tet_faces": tet_faces, "tri_value": tri_value,
+            "tet_value": tet_value, "tri_set": ptri.BINNED_THRESHOLD_GPU,
+            "tet_set": pt.BINNED_FIRST_HIT_THRESHOLD_GPU,
+            "seconds": [tri_s, tet_s]}
+
+
+def fuzz_phases(dev):
+    """Both parity fuzz harnesses on the card: the tri sweep (the JAX
+    harness's 40 seeds from 1000, ``FUZZ_TRI``, then ``FUZZ_BIG_TRI``
+    configs of ``--big``) and the tet sweep (30 seeds from 2000,
+    ``FUZZ_TET``, each with both first hits, then ``FUZZ_BIG_TET`` configs
+    of ``--big``). Any failure, or a
+    sweep in which one of its kernels never launched, raises."""
+    from dmesh_renderer_tpu_torch.tools import fuzz_tet_parity as ftet
+    from dmesh_renderer_tpu_torch.tools import fuzz_tri_parity as ftri
+
+    out = {}
+    for name, mod, (start, n), big in (
+            ("tri", ftri, FUZZ_TRI, False),
+            ("tri --big", ftri, (FUZZ_TRI[0], FUZZ_BIG_TRI), True),
+            ("tet", ftet, FUZZ_TET, False),
+            ("tet --big", ftet, (FUZZ_TET[0], FUZZ_BIG_TET), True)):
+        t0 = time.perf_counter()
+        results, launched = mod.sweep(range(start, start + n), dev, big)
+        secs = time.perf_counter() - t0
+        fails = [f"{label}: {'; '.join(e)}" for label, e in results if e]
+        log(f"fuzz {name}: {len(results)} configs from seed {start}, "
+            f"{len(fails)} failures, launches {launched}, {secs:.1f} s")
+        check(not fails, f"fuzz {name} failed: {fails}")
+        check(all(launched[k] > 0 for k in mod.KERNELS),
+              f"fuzz {name}: a kernel never launched: {launched}")
+        out[name] = {"configs": len(results), "failures": fails,
+                     "launches": launched, "seconds": secs}
+    return out
+
+
 def mv_rank():
     """One rank of the multi-view phases: for each of tri and tet, one SGD
     step, two runs of ``MV_STEPS`` Adam steps (each step's launch counts,
@@ -2230,8 +2461,8 @@ def checkpoint_phases(dev):
 
 
 def example_phases():
-    """Phase 25: both example loops on the card, the tet one on 2 ranks
-    sharing it: the loss falls, and the step resumed from the midpoint
+    """Phase 25: both example loops on the card, each on 2 ranks sharing
+    it: the loss falls, and the step resumed from the midpoint
     checkpoint repeats the uninterrupted run's."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
     import port_optimize_tet
@@ -2239,10 +2470,11 @@ def example_phases():
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        # the tri example's 48 triangles take the dense oracle, whose
-        # backward walks the faces in Python (~0.3 s a step): 20 steps of it
+        # both on 2 ranks: the tri example's 48 triangles take the binned
+        # path on the card (BINNED_THRESHOLD_GPU), not the dense oracle's
+        # Python loop over the faces
         for name, mod, ranks, steps in (
-                ("triangles", port_optimize_triangles, 1, 20),
+                ("triangles", port_optimize_triangles, 2, 60),
                 ("tet", port_optimize_tet, 2, 60)):
             t0 = time.perf_counter()
             r = mod.main(["--device", "cuda", "--ranks", str(ranks),
@@ -2654,6 +2886,12 @@ def main() -> int:
     examples = example_phases()
     log(f"phases 23-25 took {time.perf_counter() - t_new:.1f} s; the script "
         f"{time.perf_counter() - t_main:.1f} s until here")
+    t_new = time.perf_counter()
+    fuzz = fuzz_phases(dev)
+    ladder = dispatch_ladder(dev)
+    log(f"phases 26-27 (fuzz sweeps, dispatch ladder) took "
+        f"{time.perf_counter() - t_new:.1f} s; the script "
+        f"{time.perf_counter() - t_main:.1f} s until here")
     sharded = {k: v for kind in ("tri", "tet")
                for k, v in multi_view[kind]["launches_per_rank_step"].items()}
     for entry in (*tet_kernels, k5_entry):
@@ -2716,6 +2954,7 @@ def main() -> int:
         "train_losses": losses, **tet_info, **tet_train_info,
         "diagnostics": diag, "launch_path_split_us": split_us,
         "multi_view": multi_view, "checkpoint": ckpt, "examples": examples,
+        "fuzz": fuzz, "dispatch_ladder": ladder,
         "experiments": {k: _jsonable(v) for k, v in answers.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -57,6 +57,16 @@ class TriRenderSettings(NamedTuple):
     run_capacity: Any = None
 
 
+def _inverses(mv_t, proj_t):
+    """The inverses of the [B, 4, 4] modelview and projection matrices on
+    their own device (``ops.geometry.inverse44``: the same bits on the CPU
+    and on the card, no host sync)."""
+    from .ops.geometry import inverse44
+
+    both = inverse44(torch.stack([mv_t, proj_t]))
+    return both[0], both[1]
+
+
 def render_tri(verts, faces, verts_color, faces_opacity, mv_mats, proj_mats,
                verts_depth, faces_intense, render_settings: TriRenderSettings,
                return_aux: bool = False, device="cuda"):
@@ -85,8 +95,7 @@ def render_tri(verts, faces, verts_color, faces_opacity, mv_mats, proj_mats,
         _as_tensor(render_settings.bg, f32, dev),
     )
     check_tri_inputs(*args)
-    inv_mv_t = torch.linalg.inv(mv_t)
-    inv_proj_t = torch.linalg.inv(proj_t)
+    inv_mv_t, inv_proj_t = _inverses(mv_t, proj_t)
     kcap = render_settings.key_capacity
     rcap = render_settings.run_capacity
     return render_tri_auto(
@@ -181,7 +190,7 @@ def render_tet(verts, faces, verts_color, faces_opacity, mv_mats, proj_mats,
     kcap = render_settings.key_capacity
     return render_tet_core(
         a["verts"], a["faces"], a["verts_color"], a["faces_opacity"], mv_t,
-        proj_t, torch.linalg.inv(mv_t), torch.linalg.inv(proj_t),
+        proj_t, *_inverses(mv_t, proj_t),
         a["faces_intense"], a["tets"], a["face_tets"], a["tet_faces"],
         a["bg"], H, W, int(render_settings.ray_random_seed),
         kcap=None if kcap is None else int(kcap), with_aux=return_aux)

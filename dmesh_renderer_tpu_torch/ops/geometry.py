@@ -83,6 +83,71 @@ def transform_point44(p: torch.Tensor, m_t: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _inverse44_tables():
+    """Index and sign tables of the closed-form 4x4 inverse over a matrix
+    flattened row-major (``x[4 * row + col]``).
+
+    ``MINOR_*``: the twelve 2x2 minors of rows (0, 1) and rows (2, 3) over
+    each column pair, ``x[A] * x[B] - x[C] * x[D]``. ``TERM_*``: the adjugate
+    entry ``adj[j][i]`` = cofactor ``C[i][j]`` is the 3x3 minor without row
+    ``i`` and column ``j``, expanded along the row of ``i``'s half that
+    remains: three terms ``sign * x[row, col] * minor`` of the other half."""
+    pairs = [(p, q) for p in range(4) for q in range(p + 1, 4)]
+    ma, mb, mc, md = [], [], [], []
+    for r0, r1 in ((0, 1), (2, 3)):
+        for p, q in pairs:
+            ma.append(4 * r0 + p)
+            mb.append(4 * r1 + q)
+            mc.append(4 * r1 + p)
+            md.append(4 * r0 + q)
+    tx, tm, ts = [[0] * 3 for _ in range(16)], [[0] * 3 for _ in range(16)], \
+        [[0.0] * 3 for _ in range(16)]
+    for i in range(4):
+        row, other = (1 - i, 6) if i < 2 else (5 - i, 0)
+        for j in range(4):
+            cols = [c for c in range(4) if c != j]
+            e = 4 * j + i
+            for t in range(3):
+                rest = tuple(c for c in cols if c != cols[t])
+                tx[e][t] = 4 * row + cols[t]
+                tm[e][t] = other + pairs.index(rest)
+                ts[e][t] = float((-1) ** (i + j + t))
+    return (ma, mb, mc, md), (tx, tm, ts)
+
+
+_INV44_MINORS, _INV44_TERMS = _inverse44_tables()
+_INV44_CACHE: dict = {}
+
+
+def inverse44(m: torch.Tensor) -> torch.Tensor:
+    """Inverses of [..., 4, 4] f32 matrices on their own device, bit-equal
+    on the CPU and on the card.
+
+    The adjugate over the 2x2 minors, divided by the determinant, in f64
+    and rounded to f32 once. Only gathers, elementwise products and sums in
+    a fixed order and one quotient, each rounded by IEEE rules on every
+    device; a solver's (LAPACK's against cuSOLVER's) parts in the last bit,
+    and along a long tet walk such a difference grows past 1e-5 in a
+    pixel's colour. No host sync."""
+    dev = m.device
+    if dev not in _INV44_CACHE:
+        def idx(v):
+            return torch.tensor(v, dtype=torch.long, device=dev)
+        _INV44_CACHE[dev] = (
+            [idx(v) for v in _INV44_MINORS],
+            [idx(v) for v in _INV44_TERMS[:2]],
+            torch.tensor(_INV44_TERMS[2], dtype=torch.float64, device=dev))
+    (ma, mb, mc, md), (tx, tm), ts = _INV44_CACHE[dev]
+    x = m.reshape(*m.shape[:-2], 16).double()
+    minors = x[..., ma] * x[..., mb] - x[..., mc] * x[..., md]
+    t = (ts * x[..., tx]) * minors[..., tm]
+    adj = (t[..., 0] + t[..., 1]) + t[..., 2]
+    # the cofactor expansion along row 0: sum_k x[0, k] * adj[k][0]
+    det = (((x[..., 0] * adj[..., 0] + x[..., 1] * adj[..., 4])
+            + x[..., 2] * adj[..., 8]) + x[..., 3] * adj[..., 12])
+    return (adj / det[..., None]).float().reshape(m.shape)
+
+
 def transform_point43(p: torch.Tensor, m_t: torch.Tensor) -> torch.Tensor:
     """Affine transform (drops the homogeneous w of the result)."""
     return transform_point44(p, m_t)[..., :3]

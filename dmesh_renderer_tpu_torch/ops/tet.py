@@ -7,7 +7,8 @@ pixel's ray through the tet connectivity:
 
   project_verts + preprocess_faces
   -> generate_rays (tet norm mode, optional threefry jitter)
-  -> the first hit: ``first_intersection_dense`` (F <= 2048) or the binned
+  -> the first hit: ``first_intersection_dense`` (F at or below the
+     device's ``BINNED_FIRST_HIT_THRESHOLD``/``_GPU``) or the binned
      ``tet_first_hit.first_intersection_binned`` (kernel K3)
   -> ``march_tables`` and the start tet of every ray (``start_tets``)
   -> ``fwd_march`` (kernel K4, csrc/tet_fwd.cu): per ray, blend the current
@@ -43,6 +44,7 @@ log, and one re-walk covers every walk depth, as the CUDA original does.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -67,8 +69,29 @@ from .reduce import corner_sum, seg_sum, segment_csr
 # [B, rays, faces] temporaries).
 FIRST_HIT_CHUNK = 128
 FIRST_HIT_RAY_BLOCK = 32768
-# Above this face count the binned first hit (K3) is used.
+# Above these face counts the binned first hit (K3) is used: on the CPU
+# the JAX package's value, which the parity tests use; on the card its own.
+# There the dense first hit was slower than the binned one in fwd+bwd at
+# 256x256 on every grid of chip_smoke.py's ladder, from 120 faces up
+# (NVIDIA H100), so every scene with a face takes K3.
 BINNED_FIRST_HIT_THRESHOLD = 2048
+BINNED_FIRST_HIT_THRESHOLD_GPU = 0
+
+
+@contextlib.contextmanager
+def first_hit_path(path):
+    """Force the dense (``"dense"``) or the binned (``"binned"``) first hit
+    on every device for the duration (both thresholds above)."""
+    names = ("BINNED_FIRST_HIT_THRESHOLD", "BINNED_FIRST_HIT_THRESHOLD_GPU")
+    saved = [globals()[n] for n in names]
+    value = 0 if path == "binned" else 1 << 62
+    try:
+        globals().update(dict.fromkeys(names, value))
+        yield
+    finally:
+        globals().update(zip(names, saved))
+
+
 # log(T) after a face of opacity 1: log(T_EPS * 0.1), rounded to f32.
 LOG_T_FLOOR = float(torch.tensor(math.log(T_EPS * 0.1), dtype=torch.float32))
 TET_GEO_COLS = 40  # p0, e1, e2 of the 4 face slots (36), 4 outward signs
@@ -474,6 +497,7 @@ def fwd_march_plain(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
 # The forward
 # =============================================================================
 
+
 def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
                        proj_t, inv_mv_t, inv_proj_t, faces_intense, tets,
                        face_tets, tet_faces, bg, height: int, width: int,
@@ -493,7 +517,9 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
     F = faces.shape[0]
     N = height * width
     dev = verts.device
-    use_binned = F > BINNED_FIRST_HIT_THRESHOLD
+    threshold = (BINNED_FIRST_HIT_THRESHOLD if dev.type == "cpu"
+                 else BINNED_FIRST_HIT_THRESHOLD_GPU)
+    use_binned = F > threshold
 
     ndc, img = project_verts(verts, mv_t, proj_t, width, height)
     tile = BIN_TILE if use_binned else TILE_X

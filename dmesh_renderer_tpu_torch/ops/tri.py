@@ -1,4 +1,4 @@
-"""Tri renderer dispatch: dense oracle (small scenes) or binned (scaled).
+"""Tri renderer dispatch: the dense oracle or the tile-binned path.
 
 A port of the JAX package's ``ops/tri.py``, including its empty-geometry
 behaviour. The strategy follows the face count and the device of the
@@ -14,10 +14,13 @@ from .tri_oracle import render_tri_oracle
 
 # Face counts above which the binned path is taken. On the CPU the binned
 # composite is the plain torch loop, so the dense path stays preferable far
-# longer. The GPU value is the JAX package's accelerator threshold, until an
-# H100 measurement sets the port's own.
+# longer (the JAX package's value, which the parity tests use). On the card
+# the dense oracle, a Python loop over the faces, was slower than the binned
+# path in fwd+bwd at every face count of chip_smoke.py's ladder, from 8
+# faces up, at 64x64, 256x256 and 800x800 (NVIDIA H100): every scene with a
+# face takes the binned path there.
 BINNED_THRESHOLD_CPU = 4096
-BINNED_THRESHOLD_GPU = 256
+BINNED_THRESHOLD_GPU = 0
 
 
 class _ConstantZeros(torch.autograd.Function):

@@ -78,3 +78,24 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
     assert pd.device_busy_ms(prof) == 0.0  # no device events on the CPU
+
+
+def test_serve_frame_ms_on_cpu(capsys):
+    """``tools/serve_frame_ms.py`` times both serving frames through the
+    public API and prints one JSON line; the tet frame's active pixels
+    equal those of ``TetRenderer`` on the same scene."""
+    from dmesh_renderer_tpu_torch import TetRenderSettings, TetRenderer
+    from dmesh_renderer_tpu_torch.tools import serve_frame_ms
+    from dmesh_renderer_tpu_torch.utils.scenes import tet_scene
+
+    out = serve_frame_ms.main(["--device", "cpu", "--reps", "2",
+                               "--tri-faces", "60", "--tet-grid", "2",
+                               "--size", "24"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
+    assert out["tri_faces"] == 60 and out["tet_faces"] == 120
+    assert out["tri_frame_ms"] > 0 and out["tet_frame_ms"] > 0
+    assert out["tri_syncs"] is None and out["tet_syncs"] is None
+    *arrays, bg = tet_scene(2, 1, 24, 24)
+    _c, _d, active = TetRenderer(TetRenderSettings(24, 24, bg),
+                                 device="cpu")(*arrays)
+    assert out["tet_active"] == int(active.sum()) > 0

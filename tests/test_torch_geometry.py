@@ -192,3 +192,25 @@ def test_face_outward_normal_matches_jax():
     pts[2] = pts[1]
     flat = tg.face_outward_normal(*(torch.from_numpy(x) for x in pts))
     assert not flat.any()
+
+
+@pytest.mark.parametrize("kind", ["cameras", "random"])
+def test_inverse44_matches_float64(kind):
+    """``inverse44`` (the API's inverses) against the float64 inverse: 1
+    ulp of each entry (entries that cancel to about 0 within 1e-12 of the
+    matrix's largest), and against JAX's ``jnp.linalg.inv`` at the f32
+    tolerance: the ring cameras' modelview and projection matrices, and
+    random matrices."""
+    if kind == "cameras":
+        mv, proj = scenes.ring_cameras(8, radius=3.0)
+        m = np.concatenate([np.swapaxes(mv, 1, 2), np.swapaxes(proj, 1, 2)])
+    else:
+        m = np.random.RandomState(11).randn(64, 4, 4)
+    m = m.astype(np.float32)
+    got = tg.inverse44(torch.from_numpy(m)).numpy()
+    want = np.linalg.inv(m.astype(np.float64))
+    scale = np.abs(want).max(axis=(1, 2), keepdims=True)
+    ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    assert (np.abs(got - want) <= ulp + 1e-12 * scale).all()
+    jax_inv = np.asarray(jnp.linalg.inv(jnp.asarray(m)))
+    assert float((np.abs(got - jax_inv) / scale).max()) <= 1e-5

@@ -13,31 +13,21 @@ import pytest
 import torch
 
 from dmesh_renderer_tpu_torch import TetRenderSettings, TetRenderer
+from dmesh_renderer_tpu_torch.api import _inverses
 from dmesh_renderer_tpu_torch.convert import tet_args_from_numpy
-from dmesh_renderer_tpu_torch.ops import binning as tb
-from dmesh_renderer_tpu_torch.ops import geometry as tg
-from dmesh_renderer_tpu_torch.ops import rays as tr
 from dmesh_renderer_tpu_torch.ops import tet as pt
 from dmesh_renderer_tpu_torch.ops import tet_first_hit as pfh
-from dmesh_renderer_tpu_torch.utils.connectivity import (
-    build_tet_connectivity, freudenthal_grid,
-)
+from dmesh_renderer_tpu_torch.tools import tet_stages
 import scenes
 
 pytestmark = pytest.mark.gpu
 
-# (grid n, jitter, grid seed, views, ring radius, H, W, ray seed): the
-# adversarial golden's scene, an image that is no multiple of 16, and
-# cameras outside the mesh without jitter
-CASES = {
-    "adversarial": (6, 0.14, 21, 2, 1.1, 48, 48, 17),
-    "odd_37x50": (4, 0.12, 3, 1, 0.9, 37, 50, 5),
-    "outside": (5, 0.1, 8, 2, 3.0, 64, 64, 0),
-}
-# and for K3 a ragged image whose tile lists (180-1,482 slots) are walked
-# for a few of its 32-slot rounds, pixels stopping at a round's first slot
-# and inside rounds
-K3_CASES = {**CASES, "ragged_100x72": (8, 0.1, 8, 2, 2.0, 100, 72, 0)}
+# the scenes of ``tools.tet_stages.CASES``: the adversarial golden's, an
+# image that is no multiple of 16 and cameras outside the mesh; and for K3
+# a ragged image whose tile lists are walked for a few 32-slot rounds
+K3_CASES = tet_stages.CASES
+CASES = {k: v for k, v in K3_CASES.items() if k != "ragged_100x72"}
+_scene = tet_stages.scene
 
 
 @pytest.fixture
@@ -47,59 +37,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _scene(case):
-    n, jit, gseed, b, radius, h, w, seed = K3_CASES[case]
-    verts, tets = freudenthal_grid(n, jitter=jit, seed=gseed)
-    faces, face_tets, tet_faces = build_tet_connectivity(tets)
-    rng = np.random.RandomState(33)
-    vcolor = rng.rand(verts.shape[0], 3).astype(np.float32)
-    fopacity = rng.uniform(0.05, 0.95, faces.shape[0]).astype(np.float32)
-    fopacity[rng.randint(0, faces.shape[0], faces.shape[0] // 10)] = 1.0
-    fintense = rng.uniform(0.5, 1.0, (b, faces.shape[0])).astype(np.float32)
-    mv, proj = scenes.ring_cameras(b, radius=radius)
-    mv_t = np.swapaxes(mv, 1, 2).copy()
-    proj_t = np.swapaxes(proj, 1, 2).copy()
-    bg = np.array([0.1, 0.2, 0.3], np.float32)
-    args = (verts, faces, vcolor, fopacity, mv_t, proj_t,
-            np.linalg.inv(mv_t), np.linalg.inv(proj_t), fintense, tets,
-            face_tets, tet_faces, bg)
-    return args, h, w, seed
-
-
 def _stages(t, h, w, seed):
-    """The binned forward's stages on the device of ``t``: a dict of every
-    intermediate (the sequence of ``ops.tet.render_tet_forward``)."""
-    B = t[4].shape[0]
-    gx, gy = (w + 31) // 32, (h + 31) // 32
-    s = {}
-    ndc, img = tg.project_verts(t[0], t[4], t[5], w, h)
-    s["pre"] = tg.preprocess_faces(ndc, img, t[1], w, h, 32, 32)
-    s["rd"] = tr.generate_rays(t[6], t[7], w, h, norm_eps_mode="tet",
-                               jitter_seed=seed or None)[1]
-    s["keys"] = tb.emit_and_sort(s["pre"], gx, gy, 1 << 20,
-                                 sort_by="min_depth")
-    cam_o = t[6][:, 3, :3].contiguous()
-    s["table"] = pfh.build_first_hit_table(
-        t[0], t[1], cam_o, s["pre"]["min_depth"],
-        s["pre"]["max_depth"])[s["keys"].sigma]
-    k = s["keys"]
-    s["fh_inputs"] = (k.starts, k.ends, k.slot_face, s["table"], s["rd"], B,
-                      h, w)
+    """The binned forward's stages on the device of ``t`` up to K4's
+    inputs, the first hit by its plain version: a dict of every
+    intermediate, with ``fh_inputs`` and ``march_inputs``."""
+    seq, s, fh_inputs, march_inputs = tet_stages.stages(t, h, w, seed,
+                                                        kcap=1 << 20)
+    for _name, fn in seq[:4]:  # projection, binning, table, rays
+        fn()
+    s["fh_inputs"] = fh_inputs()
     s["fh"] = pfh.first_hit_plain(*s["fh_inputs"])
-    s["march"] = pt.march_tables(t[0], t[1], t[9], t[11], t[10], t[2], t[3],
-                                 t[8])
-    M = B * h * w
-    rd = s["rd"].reshape(M, 3)
-    ff = s["fh"][0].reshape(M)
-    s["first_tet"] = pt.start_tets(ff, rd, s["march"]["geo"],
-                                   s["march"]["sign"], t[10], t[11])
-    s["zw"] = pt.projective_zw(cam_o, s["rd"].reshape(B, h * w, 3), t[4],
-                               t[5])
-    tuv = torch.stack([x.reshape(M) for x in s["fh"][1:4]])
-    m = s["march"]
-    s["march_inputs"] = (rd, cam_o, s["zw"], ff, s["first_tet"], tuv,
-                         m["tet_geo"], m["tet_nrm"], m["tet_ids"], m["shade"],
-                         h, w)
+    dict(seq)["march tables+start tet"]()
+    s["march_inputs"] = march_inputs()
     return s
 
 
@@ -219,58 +168,68 @@ def test_march_kernel_cut_walks(max_steps, cuda):
     assert int(i_out[2].max()) == max_steps and int(cut.sum()) > 0
 
 
-@pytest.mark.parametrize("case", ["adversarial", "outside"])
+@pytest.mark.parametrize("case", list(K3_CASES))
 def test_stages_match_cpu(case, cuda):
     """Every stage without a transcendental is bit-equal on the card and on
-    the CPU: rays (jittered or not), binning, the first hit (K3 on the card,
-    its plain version on the CPU), the march tables but their log column,
-    the start tets and the projective depth rows."""
+    the CPU: projection, binning, the first-hit table, rays (jittered or
+    not), the first hit (K3 on the card, its plain version on the CPU), the
+    march tables but their log column, the start tets, the projective
+    depth rows and K4's integer outputs. Only the log column and what K4
+    and the assembly derive from it through exp may differ."""
     args, h, w, seed = _scene(case)
-    sg = _stages(tet_args_from_numpy(*args, device=cuda), h, w, seed)
-    sc = _stages(tet_args_from_numpy(*args, device="cpu"), h, w, seed)
-    eq = lambda a, b, what: _assert_equal(a, b, f"{case}: {what}")
-    eq(sg["rd"], sc["rd"], "rays")
-    for k in ("starts", "ends", "slot_face", "sigma", "total"):
-        eq(getattr(sg["keys"], k), getattr(sc["keys"], k), k)
-    eq(sg["table"], sc["table"], "first-hit table")
-    for i, g in enumerate(pfh.first_hit(*sg["fh_inputs"])):
-        eq(g, sc["fh"][i], f"first hit output {i}")
-    for k in ("tet_geo", "tet_ids", "geo", "sign"):
-        eq(sg["march"][k], sc["march"][k], k)
-    cols = [c for c in range(12) if c != 10]
-    eq(sg["march"]["shade"][:, cols], sc["march"]["shade"][:, cols], "shade")
-    eq(sg["first_tet"], sc["first_tet"], "start tets")
-    eq(sg["zw"], sc["zw"], "projective z/w")
+    _first, differing = tet_stages.card_vs_cpu(cuda, args, h, w, seed)
+    assert not tet_stages.not_transcendental(differing), (case, differing)
 
 
-def _assert_equal(a, b, what):
-    a = a.cpu() if isinstance(a, torch.Tensor) else a
-    b = b.cpu() if isinstance(b, torch.Tensor) else b
-    assert torch.equal(torch.as_tensor(a), torch.as_tensor(b)), what
+def test_inverses_bit_equal_on_card(cuda):
+    """The API's inverses (``ops.geometry.inverse44``) are the same bits on
+    the card and on the CPU: the cameras of every scene above, of the tet
+    headline's ring, and random matrices."""
+    mats = [np.concatenate([_scene(c)[0][4], _scene(c)[0][5]])
+            for c in K3_CASES]
+    mv, proj = scenes.ring_cameras(8)
+    mats += [np.swapaxes(mv, 1, 2), np.swapaxes(proj, 1, 2),
+             np.random.RandomState(7).randn(256, 4, 4)]
+    m = torch.from_numpy(np.concatenate(mats).astype(np.float32))
+    mv_c, proj_c = _inverses(m, m)
+    mv_g, proj_g = _inverses(m.to(cuda), m.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(mv_g.cpu(), mv_c) and torch.equal(proj_g.cpu(), proj_c)
+    assert bool(torch.isfinite(mv_c).all())
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_render_on_card_matches_cpu(case, cuda, monkeypatch):
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_render_on_card_matches_cpu(case, cuda):
     """End to end through ``TetRenderer`` (the binned first hit forced on
-    these small scenes): the active mask and the saved integer state exact,
-    colour and depth close (the card's and the CPU's exp differ in the last
-    bits)."""
+    these small scenes): the active mask and the first hit's aux exact,
+    colour and depth close (the card's and the CPU's log and exp differ in
+    the last bits); then the forward with the API's inverses on each
+    device, its saved integer state exact."""
     args, h, w, seed = _scene(case)
-    monkeypatch.setattr(pt, "BINNED_FIRST_HIT_THRESHOLD", 1)
     user = (args[0], args[1], args[2], args[3], np.swapaxes(args[4], 1, 2),
             np.swapaxes(args[5], 1, 2),
             np.zeros((args[4].shape[0], args[0].shape[0]), np.float32),
             args[8], args[9], args[10], args[11])
     settings = TetRenderSettings(h, w, args[12], ray_random_seed=seed)
     before = (pfh.first_hit.launches, pt.fwd_march.launches)
-    cg, dg, ag, auxg = TetRenderer(settings, device="cuda")(
-        *user, return_aux=True)
-    torch.cuda.synchronize()
-    assert (pfh.first_hit.launches, pt.fwd_march.launches) == (
-        before[0] + 1, before[1] + 1)
-    cc, dc, ac, auxc = TetRenderer(settings, device="cpu")(
-        *user, return_aux=True)
+    with pt.first_hit_path("binned"):
+        cg, dg, ag, auxg = TetRenderer(settings, device="cuda")(
+            *user, return_aux=True)
+        torch.cuda.synchronize()
+        assert (pfh.first_hit.launches, pt.fwd_march.launches) == (
+            before[0] + 1, before[1] + 1)
+        cc, dc, ac, auxc = TetRenderer(settings, device="cpu")(
+            *user, return_aux=True)
     assert torch.equal(ag.cpu(), ac) and int(ac.sum()) > 0
     assert [int(x) for x in auxg] == [int(x) for x in auxc]
     assert float((cg.cpu() - cc).abs().max()) <= 1e-5
     assert float((dg.cpu() - dc).abs().max()) <= 1e-5
+    saved = {}
+    for dev in (cuda, torch.device("cpu")):
+        t = list(tet_args_from_numpy(*args, device=dev))
+        t[6], t[7] = _inverses(t[4], t[5])
+        with pt.first_hit_path("binned"):
+            saved[dev.type] = pt.render_tet_forward(*t, h, w, seed)[3]
+    for k in ("first_face", "last_face", "last_tet", "n_contrib",
+              "is_active"):
+        assert torch.equal(saved["cuda"][k].cpu(), saved["cpu"][k]), k

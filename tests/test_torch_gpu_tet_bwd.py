@@ -33,6 +33,12 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def binned_first_hit():
+    with pt.first_hit_path("binned"):
+        yield
+
+
 def _upstream(B, h, w, dev):
     rng = np.random.RandomState(5)
     return (torch.from_numpy(rng.randn(B, 3, h, w).astype(np.float32))
@@ -67,10 +73,9 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("case", ["adversarial", "outside", "odd_37x50"])
-def test_bwd_march_kernel_matches_plain(case, cuda, monkeypatch):
+def test_bwd_march_kernel_matches_plain(case, cuda, binned_first_hit):
     """K5 against its plain version on the same CUDA inputs: keys, records
     and mismatch flags bit for bit, and the gradients reduced from each."""
-    monkeypatch.setattr(pt, "BINNED_FIRST_HIT_THRESHOLD", 1)
     args, h, w, seed = _scene(case)
     t = tet_args_from_numpy(*args, device=cuda)
     gc, gd = _upstream(t[4].shape[0], h, w, cuda)
@@ -89,14 +94,13 @@ def test_bwd_march_kernel_matches_plain(case, cuda, monkeypatch):
         assert torch.equal(a, b)
 
 
-def test_bwd_march_kernel_bad_rays(cuda, monkeypatch):
+def test_bwd_march_kernel_bad_rays(cuda, binned_first_hit):
     """K5 against its plain version where re-walks do not retrace the
     forward, at B=2: every 7th ray with records is given a first face it
     never meets, so it walks past the forward's first face, and every 11th
     ray with two or more records a start tet of -1, so its walk ends after
     one visit and its other slots take the absorber key F and zeros. Each
     such ray's mismatch flag is set."""
-    monkeypatch.setattr(pt, "BINNED_FIRST_HIT_THRESHOLD", 1)
     args, h, w, seed = _scene("adversarial")
     t = tet_args_from_numpy(*args, device=cuda)
     gc, gd = _upstream(t[4].shape[0], h, w, cuda)
@@ -121,11 +125,10 @@ def test_bwd_march_kernel_bad_rays(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["adversarial", "outside"])
-def test_start_state_matches_cpu(case, cuda, monkeypatch):
+def test_start_state_matches_cpu(case, cuda, binned_first_hit):
     """``bwd_start_state`` fed the same forward state on both devices: the
     same bits, but for the two exp rows (final T and final prev T), which
     the two devices' exp may round apart by an ulp."""
-    monkeypatch.setattr(pt, "BINNED_FIRST_HIT_THRESHOLD", 1)
     args, h, w, seed = _scene(case)
     t = tet_args_from_numpy(*args, device="cpu")
     gc, gd = _upstream(t[4].shape[0], h, w, "cpu")
@@ -142,10 +145,9 @@ def test_start_state_matches_cpu(case, cuda, monkeypatch):
     assert torch.equal(card[2].cpu(), cpu[2]) and card[3] == cpu[3]
 
 
-def test_grads_deterministic_and_match_cpu(cuda, monkeypatch):
+def test_grads_deterministic_and_match_cpu(cuda, binned_first_hit):
     """Two backwards on the card give the same bits; the card's gradients
     are within ``CARD_CPU_RTOL`` of the port's on the CPU."""
-    monkeypatch.setattr(pt, "BINNED_FIRST_HIT_THRESHOLD", 1)
     args, h, w, seed = _scene("adversarial")
     tg = tet_args_from_numpy(*args, device=cuda)
     tc = tet_args_from_numpy(*args, device="cpu")

@@ -16,6 +16,8 @@ def _sources():
              + sorted((ROOT / "examples").glob("port_*.py")))
     assert len(files) > 10 and all(f.exists() for f in files)
     for part in ("tools/exp_round3.py", "tools/proto_march_kernel.py",
+                 "tools/fuzz_tri_parity.py", "tools/fuzz_tet_parity.py",
+                 "tools/fuzz_common.py", "tools/tet_stages.py",
                  "utils/diagnostics.py", "parallel/sharding.py",
                  "parallel/launch.py", "utils/checkpoint.py"):
         assert PORT / part in files, part
@@ -98,6 +100,12 @@ with tempfile.TemporaryDirectory() as d:
                           state)
 sys.path.insert(0, "examples")
 import port_optimize_tet, port_optimize_triangles
+from dmesh_renderer_tpu_torch.tools import fuzz_tet_parity, fuzz_tri_parity
+assert fuzz_tri_parity.check_config(1016, cpu)[1] == []
+assert fuzz_tet_parity.make_config(2000)[2:4] == (24, 24)
+from dmesh_renderer_tpu_torch.tools import tet_stages
+assert tet_stages.card_vs_cpu(cpu, *tet_stages.scene("odd_37x50")) == (
+    None, [])
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("OK")

@@ -383,9 +383,9 @@ def test_empty_geometry_grads(empty):
 
 
 def test_tetrenderer_grads_match_jax_torch_bridge(spec):
-    """The module path (casts, transposes, ``torch.linalg.inv``) against
-    the JAX package's ``TetRenderer`` on torch tensors, whose gradients come
-    through its autograd bridge."""
+    """The module path (casts, transposes, ``ops.geometry.inverse44``)
+    against the JAX package's ``TetRenderer`` on torch tensors, whose
+    gradients come through its autograd bridge."""
     sc, h, w = spec["sc"], spec["h"], spec["w"]
     wc, wd = (torch.from_numpy(x) for x in (spec["wc"], spec["wd"]))
     grads = []

@@ -420,9 +420,9 @@ def test_binned_first_hit_matches_dense(spec, monkeypatch):
 # ---------------------------------------------------------------- API
 
 def test_tetrenderer_matches_jax(spec):
-    """The module path: casts, transposes and ``torch.linalg.inv`` (whose
-    inverse of the projection differs from JAX's in the last bit of 4
-    entries, hence tolerances on colour and depth, the mask exact)."""
+    """The module path: casts, transposes and ``ops.geometry.inverse44``
+    (whose inverses may differ from JAX's ``jnp.linalg.inv`` in the last
+    bit, hence tolerances on colour and depth, the mask exact)."""
     sc, h, w, seed, out, _store, _t = spec
     r = TetRenderer(TetRenderSettings(h, w, sc[10]), device="cpu")
     color, depth, active = r(*user_inputs(sc))
