@@ -31,14 +31,16 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 6. hold the backward kernel (K2, ``bwd_composite``) against its plain
    version with a fixed random upstream gradient, at 4096
    triangles/256x256/B=2 and at the headline: the compacted records (each
-   tile's walked prefix only) and their slot ids bit for bit, and the five
+   tile's walked prefix, the first rows of the buffer that the slot
+   capacity sizes) bit for bit and all the slot ids, and the five
    gradients bit for bit against plain's and against the reduce of the
    plain version's full [S, 4, 22] layout (every slot a row); time it,
    print the walked slots and (slot, quarter) pairs and the record bytes,
    and work out its bound from the run's counts;
 7. hold ``seg_sum`` against its plain version bit for bit at both shapes
    the main path gives it (the headline's record reduce of the compacted
-   records and its vertex reduce), print their segment lengths (mean, p99,
+   records, its walked rows, and its vertex reduce), print their segment
+   lengths (mean, p99,
    max), and time it at both beside its bound, ``torch.segment_reduce`` on
    rows already in CSR order and ``index_select`` + ``segment_reduce``
    from its own inputs;
@@ -48,8 +50,10 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
    the gradients, run it twice (bitwise equal), time it and split it;
 9. binned against the oracle on the card, all five gradients at 4096
    triangles; zero gradients of empty geometry;
-10. ``models.dmesh.make_train_step`` with Adam(1e-2) at the headline (zero
-    target and background), 5 steps: the loss falls;
+10. ``models.dmesh.make_train_step`` with Adam(1e-2, capturable=True) at
+    the headline (zero target and background), 5 steps (the first eager,
+    the second captured as a CUDA graph and replayed, three replays): the
+    loss falls;
 11. the B=2 scene (20k triangles, 800x800) with gradients;
 12. hold the tet first-hit kernel (K3, ``first_hit``) and march kernel (K4,
     ``fwd_march``) against their plain versions at a small scene
@@ -144,7 +148,7 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
     and of the all-reduce alone, beside one process's B=2 step;
 24. checkpoint/resume at the tri (B=1) and tet headlines: 2 Adam steps,
     save, restore into a fresh state, 2 more, bitwise equal to 4
-    uninterrupted steps;
+    uninterrupted steps (tri: capturable Adam, the steps captured);
 25. both example loops on the card (``examples/port_optimize_*.py``, on 2
     ranks each): the loss falls, and the step resumed from the midpoint
     checkpoint equals the uninterrupted run's;
@@ -159,7 +163,17 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
     at 8 to 1,024 faces at 64x64, 256x256 and 800x800, tet on
     ``freudenthal_grid(2..8)`` at 256x256; the values the card's
     thresholds take from it (fwd+bwd at 256x256) beside those set;
-28. print one JSON line of per-kernel numbers, and as the last line
+28. the tri frame and train step as CUDA graphs at the tri headline and
+    the tri small scene: 5 captured steps and a 5-step ``make_train_loop``
+    bitwise equal to 5 eager steps (capturable Adam); a serving frame
+    captured by ``torch.cuda.graph`` bitwise equal to the eager one; the
+    launch counts of one capture (set to 0 just before) and the replays;
+    then ``tools.tri_step_ms`` at the headline: eager and captured ms per
+    serving frame and train step (medians of 20 synchronised calls after
+    the warm-ups), ``make_train_loop`` ms per step at 20 steps, host syncs
+    (eager at most 1, captured 0), device events, busy share, peak memory,
+    and the binning's (key sort) and record CSR's device times;
+29. print one JSON line of per-kernel numbers, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -515,7 +529,7 @@ def _slot_chunks(inputs):
     yy, xx = torch.meshgrid(torch.arange(32, device=dev),
                             torch.arange(32, device=dev), indexing="ij")
     count = (ends - starts).long()
-    S = slot_face.numel()
+    S = int(ends[-1])  # the live slots, which come first
     tile_of_slot = torch.repeat_interleave(
         torch.arange(count.numel(), device=dev), count, output_size=S)
     pos = torch.arange(S, device=dev) - starts.long()[tile_of_slot]
@@ -639,7 +653,7 @@ def _full_walk(starts, ends, _n_contrib, _B, _H, _W):
     the full [S, 4, 22] layout that K2 wrote before the compaction."""
     check(int(starts[0]) == 0 and torch.equal(starts[1:], ends[:-1]),
           "tile ranges do not cover the slots in order")
-    return torch.cat([starts, ends[-1:]]), int(ends[-1])
+    return torch.cat([starts, ends[-1:]]), ends[-1]
 
 
 def full_layout_plain(inputs, state, gin):
@@ -658,9 +672,11 @@ def full_layout_plain(inputs, state, gin):
 def compare_k2(inputs, k1_out, faces, faces_intense, n_verts, sigma, label,
                seed):
     """K2 against its plain version on the same CUDA inputs and a fixed
-    random upstream gradient, compacted records and slot ids bit for bit;
-    then the five gradients reduced from each, and from the plain
-    version's full layout (every slot a row), bit for bit."""
+    random upstream gradient: the compacted records (the first Wk rows of
+    the buffer the slot capacity sizes; K2 leaves the rest unwritten) and
+    every slot id bit for bit; then the five gradients reduced from each,
+    and from the plain version's full layout (every live slot a row), bit
+    for bit. Returns (max abs err, (records, slot ids), gin, Wk)."""
     from dmesh_renderer_tpu_torch.ops import tri_binned as tb
 
     B, H, W = inputs[6:]
@@ -670,7 +686,9 @@ def compare_k2(inputs, k1_out, faces, faces_intense, n_verts, sigma, label,
     # free NaN-filled blocks of the output's sizes, which the caching
     # allocator hands to the call: a row K2 does not write then shows
     _offs, total = tb.walked_slots(inputs[0], inputs[1], state[2], B, H, W)
-    for n in (total * 4 * tb.REC_COLS, total):
+    total = int(total)
+    S = inputs[2].numel()
+    for n in (S * 4 * tb.REC_COLS, S):
         torch.full((n,), float("nan"), device=gin.device)
     before = tb.bwd_composite.launches
     rec, ids = tb.bwd_composite(*inputs[:6], *state, gin, B, H, W)
@@ -679,13 +697,16 @@ def compare_k2(inputs, k1_out, faces, faces_intense, n_verts, sigma, label,
     want, want_ids = tb.bwd_composite_plain(*inputs[:6], *state, gin, B, H, W)
     torch.cuda.synchronize()
     check(bool((want != 0).any()), f"{label}: K2 records all zero")
-    check(rec.shape == want.shape and torch.equal(ids, want_ids),
+    check(rec.shape == want.shape == (S, 4, tb.REC_COLS)
+          and torch.equal(ids, want_ids),
           f"{label}: K2's compacted rows or slot ids differ from plain")
-    e_rec = rel(rec, want)
+    check(bool((ids[total:] == S).all()),
+          f"{label}: a row past the walked total has no sentinel slot id")
+    e_rec = rel(rec[:total], want[:total])
     check(np.isfinite(e_rec) and e_rec <= K2_RTOL,
           f"{label}: K2 records rel err {e_rec}")
-    check(torch.equal(rec, want), f"{label}: K2 records differ from plain "
-          f"(rel err {e_rec})")
+    check(torch.equal(rec[:total], want[:total]),
+          f"{label}: K2 records differ from plain (rel err {e_rec})")
     args = (inputs[2], sigma, inputs[3], faces, faces_intense, n_verts)
     gk = tb.reduce_records(rec, ids, *args)
     gp = tb.reduce_records(want, want_ids, *args)
@@ -693,19 +714,21 @@ def compare_k2(inputs, k1_out, faces, faces_intense, n_verts, sigma, label,
     check(all(torch.equal(a, b) for a, b in zip(gk, gp)),
           f"{label}: K2 gradients differ from plain's (rel {e_grad})")
     full, all_ids = full_layout_plain(inputs, state, gin)
-    S = inputs[2].numel()
-    check(full.shape[0] == S and torch.equal(full[ids.long()], rec),
+    check(full.shape[0] == S
+          and torch.equal(full[ids[:total].long()], rec[:total]),
           f"{label}: the full layout's walked rows differ from K2's")
     gf = tb.reduce_records(full, all_ids, *args)
     check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
               for a, b in zip(gk, gf)),
           f"{label}: K2's gradients differ from the full layout's reduce")
-    log(f"K2 vs plain [{label}]: {rec.shape[0]} walked slots of {S} "
-        f"({rec.numel() * 4} record bytes), records and slot ids bitwise "
-        f"equal; the five gradients bitwise equal to plain's and to the "
-        f"reduce of the full [S, 4, 22] layout")
-    return max(float((rec - want).abs().max()), max(
-        float((a - b).abs().max()) for a, b in zip(gk, gp))), (rec, ids), gin
+    log(f"K2 vs plain [{label}]: {total} walked slots of "
+        f"{int(inputs[1][-1])} live ({total * 4 * tb.REC_COLS * 4} record "
+        f"bytes written, in a buffer of {S} rows), records and slot ids "
+        f"bitwise equal; the five gradients bitwise equal to plain's and to "
+        f"the reduce of the full layout")
+    return max(float((rec[:total] - want[:total]).abs().max()), max(
+        float((a - b).abs().max()) for a, b in zip(gk, gp))), (rec, ids), \
+        gin, total
 
 
 def leaves_of(user):
@@ -2050,15 +2073,16 @@ def mv_problem(kind, cfg, dev):
         leaves = (fargs[0], fargs[2], fargs[3])
         batch = dmesh.ViewBatch(*fargs[4:10], target)
 
-        def make_step(mesh):
-            return dmesh.make_train_step(fargs[1], zeros, H, W, mesh=mesh)
+        def make_step(mesh, capture=True):
+            return dmesh.make_train_step(fargs[1], zeros, H, W, mesh=mesh,
+                                         capture=capture)
     else:
         user, fargs, _bg = tet_user(c["n_grid"], B, 0.15, 2, dev)
         leaves = (fargs[2], fargs[3])
         batch = dmesh.TetViewBatch(*fargs[4:9], target)
         geom = dmesh.TetGeometry(fargs[0], fargs[1], *fargs[9:12])
 
-        def make_step(mesh):
+        def make_step(mesh, capture=True):  # the tet step is eager
             return dmesh.make_tet_train_step(geom, zeros, H, W, mesh=mesh,
                                              seed=c["ray_seed"])
 
@@ -2080,6 +2104,10 @@ def _sgd(params):
 
 def _adam(params):
     return torch.optim.Adam(params, lr=1e-2)
+
+
+def _adam_capturable(params):
+    return torch.optim.Adam(params, lr=1e-2, capturable=True)
 
 
 def digest(tensors):
@@ -2339,7 +2367,8 @@ def multi_view_phases(dev):
     for kind in ("tri", "tet"):
         rs = [r[kind] for r in ranks]
         fresh, make_step, batch = mv_problem(kind, MV_CFG, dev)
-        step = make_step(None)
+        # one process's eager step, beside the sharded (eager) ones
+        step = make_step(None, capture=False)
         st, loss = step(fresh(_sgd), batch)
         want_loss = float(loss)
         want = [p.detach().cpu() for p in st.scene]
@@ -2429,11 +2458,13 @@ def checkpoint_phases(dev):
         for kind in ("tri", "tet"):
             fresh, make_step, batch = mv_problem(kind, cfg, dev)
             step = make_step(None)
-            st, want = fresh(_adam), []
+            # the tri step is captured on the card: a capturable optimiser
+            adam = _adam_capturable if kind == "tri" else _adam
+            st, want = fresh(adam), []
             for _ in range(4):
                 st, loss = step(st, batch)
                 want.append(float(loss))
-            part, got = fresh(_adam), []
+            part, got = fresh(adam), []
             for _ in range(2):
                 part, loss = step(part, batch)
                 got.append(float(loss))
@@ -2441,7 +2472,7 @@ def checkpoint_phases(dev):
             path = save_checkpoint(f"{tmp}/{kind}.pt", part)
             save_s = time.perf_counter() - t0
             t0 = time.perf_counter()
-            resumed = restore_checkpoint(path, fresh(_adam))
+            resumed = restore_checkpoint(path, fresh(adam))
             restore_s = time.perf_counter() - t0
             for _ in range(2):
                 resumed, loss = step(resumed, batch)
@@ -2494,6 +2525,103 @@ def example_phases():
                 f"loss {losses[0]:.6f} -> {losses[-1]:.6f} in {len(losses)} "
                 f"steps; resumed step equal to the uninterrupted one; "
                 f"{secs:.1f} s")
+    return out
+
+
+TRI_GRAPH_KERNELS = ("tri_fwd_composite", "tri_bwd_composite", "seg_sum")
+
+
+def step_capture_phases(dev):
+    """Phase 28: the tri frame and the tri train step as CUDA graphs, at
+    the headline and the small scene (module docstring), then
+    ``tools.tri_step_ms`` at the headline. Returns the numbers."""
+    import dmesh_renderer_tpu_torch as port
+    from dmesh_renderer_tpu_torch.models import dmesh
+    from dmesh_renderer_tpu_torch.tools import tri_step_ms
+
+    counters = launch_counters()
+    out = {}
+    for label, cfg in (("headline", HEADLINE), ("small", SMALL)):
+        user, fargs, bg = scene_tensors(**cfg, dev=dev)
+        H, W, B = cfg["height"], cfg["width"], cfg["n_views"]
+        zeros = torch.zeros(3, device=dev)
+        batch = dmesh.ViewBatch(*fargs[4:10],
+                                torch.zeros((B, 3, H, W), device=dev))
+
+        def fresh():
+            scene = dmesh.TriScene(*(fargs[i].detach().clone()
+                                     .requires_grad_(True) for i in (0, 2, 3)))
+            return dmesh.init_train_state(scene, _adam_capturable)
+
+        eager = dmesh.make_train_step(fargs[1], zeros, H, W, capture=False)
+        graphed = dmesh.make_train_step(fargs[1], zeros, H, W)
+        se, sg, want, got = fresh(), fresh(), [], []
+        for i in range(5):
+            se, loss = eager(se, batch)
+            want.append(loss)
+            if i == 1:  # the capture: counts set to 0 just before
+                for w in counters.values():
+                    w.launches = 0
+            sg, loss = graphed(sg, batch)
+            if i == 1:
+                sync(dev)
+                captured = {k: counters[k].launches
+                            for k in TRI_GRAPH_KERNELS}
+            got.append(loss)
+        loop = dmesh.make_train_loop(fargs[1], zeros, H, W, 5)
+        sl, losses = loop(fresh(), batch)
+        sync(dev)
+        check(all(torch.equal(a, b) for a, b in zip(want, got))
+              and digest(sg.scene) == digest(se.scene),
+              f"{label}: the captured steps differ from eager ones")
+        check(torch.equal(losses, torch.stack(want))
+              and digest(sl.scene) == digest(se.scene),
+              f"{label}: the captured loop differs from eager steps")
+        check((graphed.captures, graphed.replays) == (1, 4)
+              and (loop.step.captures, loop.step.replays) == (1, 4),
+              f"{label}: captures and replays")
+        check(all(captured[k] >= 1 for k in TRI_GRAPH_KERNELS),
+              f"{label}: a kernel was not captured: {captured}")
+        check(float(want[-1]) < float(want[0]),
+              f"{label}: the loss did not fall: {want}")
+        r = port.TriRenderer(port.TriRenderSettings(H, W, bg), "cuda")
+        frame = r(*user, return_aux=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            frame_g = r(*user, return_aux=True)
+        graph.replay()
+        sync(dev)
+        check(all(torch.equal(a, b) for a, b in zip(
+            (*frame[:2], *frame[2]), (*frame_g[:2], *frame_g[2]))),
+            f"{label}: the captured serving frame differs from the eager one")
+        out[label] = {"losses": [float(x) for x in want],
+                      "launches_per_capture": captured,
+                      "replays": graphed.replays + loop.step.replays}
+        log(f"step capture [{label}]: 5 captured steps and a 5-step loop "
+            f"bitwise equal to 5 eager steps (capturable Adam), losses "
+            f"{out[label]['losses']}; one capture launched {captured} "
+            f"through the wrappers, replayed {out[label]['replays']} times "
+            f"(the kernels replay without the wrappers); the captured "
+            f"serving frame bitwise equal to the eager one")
+    t0 = time.perf_counter()
+    m = tri_step_ms.run(str(Path(__file__).resolve().parent), 20, 20,
+                        HEADLINE["n_tris"], HEADLINE["height"])
+    for k in ("serve_eager", "step_eager"):
+        check(m[k]["host_syncs"] <= 1,
+              f"{k}: {m[k]['host_syncs']} host syncs, at most 1")
+    for k in ("serve_captured", "step_captured"):
+        check(m[k]["host_syncs"] == 0,
+              f"{k}: {m[k]['host_syncs']} host syncs under replay")
+    out["tri_step_ms"] = m
+    log(f"tools.tri_step_ms at the headline ({time.perf_counter() - t0:.1f} "
+        f"s): {json.dumps(m)}")
+    for k in ("serve_eager", "serve_captured", "step_eager", "step_captured"):
+        x = m[k]
+        log(f"  {k}: {x['ms']:.3f} ms, {x['host_syncs']} host syncs, "
+            f"{x['device_events']} device events, busy {x['busy_ms']:.3f} ms "
+            f"(share {x['busy_share']:.3f}), peak {x['peak_mib']:.1f} MiB")
+    log(f"  make_train_loop: {m['loop_ms_per_step']:.3f} ms per step at "
+        f"{m['loop_steps']} steps; stages {m['stages']}")
     return out
 
 
@@ -2564,8 +2692,9 @@ def main() -> int:
     # ---- the bound of K1 on this run's data
     visits, hits, k1_shapes = needed_work(inputs(), got)
     keys = st["keys"]
+    n_live = int(keys.ends[-1])  # the live slots of the static table
     n_pix = H * W * HEADLINE["n_views"]
-    nbytes = (keys.starts.numel() * 8 + keys.slot_face.numel() * 4
+    nbytes = (keys.starts.numel() * 8 + n_live * 4
               + st["ff"].numel() * 4 + st["fi"].numel() * 4
               + n_pix * 12 + n_pix * (6 * 4 + 4))
     bound_ms, bound_by, ops_ms, bytes_ms = bound(
@@ -2574,7 +2703,7 @@ def main() -> int:
         f"{ops_ms:.4f} ms; {nbytes} bytes -> {bytes_ms:.4f} ms; bound "
         f"{bound_ms:.4f} ms by {bound_by}")
     rs, occ = k1_shapes["rows_staged"], k1_shapes["blend_lane_occupancy"]
-    log(f"K1 shapes at the headline ({keys.slot_face.numel()} slots in "
+    log(f"K1 shapes at the headline ({n_live} slots in "
         f"{keys.starts.numel()} tile lists): face rows staged, quarter "
         f"blocks with 256-slot rounds {rs['quarter_blocks_256_slot_rounds']}"
         f", tile blocks with 32-slot rounds "
@@ -2659,10 +2788,10 @@ def main() -> int:
         f"oracle at 4096 tris: max_abs_err {e_or:.3g} (tol 2e-5)")
 
     # ---- K2 against plain: 4096 tris at 256^2, B=2; then the headline
-    k2_err_s, _rec_s, _gin_s = compare_k2(
+    k2_err_s, _rec_s, _gin_s, _wk_s = compare_k2(
         inputs_s(), got_s, fargs_s[1], fargs_s[9], fargs_s[0].shape[0],
         st_s["keys"].sigma, "4096 tris, 256x256, B=2", seed=1)
-    k2_err_h, (rec, rec_ids), gin = compare_k2(
+    k2_err_h, (rec, rec_ids), gin, wk = compare_k2(
         inputs(), got, fargs[1], fargs[9], fargs[0].shape[0], keys.sigma,
         "headline", seed=0)
     state = got[2:]
@@ -2673,9 +2802,8 @@ def main() -> int:
         lambda: tb.bwd_composite_plain(*inputs()[:6], *state, gin, 1, H, W),
         0, 1)
     b_visits, b_active, b_live, b_rows, b_pairs = bwd_work(inputs(), state[2])
-    check(b_rows == rec.shape[0], f"K2 wrote {rec.shape[0]} rows, the tiles "
-          f"walk {b_rows} slots")
-    rec_bytes = rec.numel() * 4
+    check(b_rows == wk, f"K2 wrote {wk} rows, the tiles walk {b_rows} slots")
+    rec_bytes = wk * 4 * tb.REC_COLS * 4
     # tile ranges and walked offsets, the walked face rows, per pixel the
     # ray (12), K1's state (12) and gin (20); the output is the compacted
     # buffer, written once: every walked (slot, quarter) row (zeros for
@@ -2685,11 +2813,12 @@ def main() -> int:
     k2_bound, k2_by, k2_ops_ms, k2_bytes_ms = bound(
         b_visits * OPS_PER_VISIT + b_active * OPS_PER_BWD_ACTIVE
         + b_live * OPS_PER_LIVE_SLOT, b_bytes)
-    S_slots = keys.slot_face.numel()
+    S_slots = n_live
     log(f"K2 at headline: {k2_ms:.4f} ms (device {k2_dev_ms:.4f}); plain "
         f"version {k2_plain_ms:.2f} ms. Walked: {b_rows} of {S_slots} slots "
-        f"({b_rows * 4} record rows, {rec_bytes} bytes, against "
-        f"{S_slots * 4 * tb.REC_COLS * 4} for the full layout), {b_pairs} "
+        f"({b_rows * 4} record rows, {rec_bytes} bytes written, against "
+        f"{S_slots * 4 * tb.REC_COLS * 4} for the full layout, in a buffer "
+        f"of {rec.numel() * 4} bytes at the slot capacity), {b_pairs} "
         f"walked (slot, quarter) pairs, {b_live} live. Work: {b_visits} "
         f"visits, {b_active} active -> {k2_ops_ms:.4f} ms; {b_bytes} bytes "
         f"-> {k2_bytes_ms:.4f} ms; bound {k2_bound:.4f} ms by {k2_by}")
@@ -2698,8 +2827,11 @@ def main() -> int:
     # shapes: the headline's record reduce (the compacted records) and its
     # vertex reduce
     F = fargs[1].shape[0]
-    csr = rd.segment_csr(keys.slot_face[rec_ids], F, inner=4)
-    vals = rec.reshape(-1, tb.REC_COLS)
+    # the walked rows (the main path's CSR also holds the sentinel rows past
+    # them, which seg_sum never reads)
+    csr = rd.segment_csr(tb.record_segments(rec_ids[:wk], keys.slot_face, F),
+                         F, inner=4)
+    vals = rec[:wk].reshape(-1, tb.REC_COLS)
     _gop, g_p, g_vc, g_vd, _gint = tb.records_to_faces(
         rec, rec_ids, keys.slot_face, keys.sigma, inputs()[3], fargs[9])
     corners = rd.corner_rows(g_p, g_vc, g_vd)
@@ -2828,13 +2960,13 @@ def main() -> int:
         f"err {e_bo:.3g} (tol {GRAD_RTOL}); F==0 and P==0 give zero "
         f"gradients")
 
-    # ---- make_train_step with Adam(1e-2) at the headline
+    # ---- make_train_step with Adam(1e-2, capturable) at the headline: the
+    # first step eager, the second captured and replayed, then replays
     lv = leaves_of(user)
     scene = dmesh.TriScene(lv[0], lv[1], lv[2])
     batch = dmesh.ViewBatch(fargs[4], fargs[5], fargs[6], fargs[7], fargs[8],
                             fargs[9], torch.zeros(1, 3, H, W, device=dev))
-    train_state = dmesh.init_train_state(
-        scene, lambda p: torch.optim.Adam(p, lr=1e-2))
+    train_state = dmesh.init_train_state(scene, _adam_capturable)
     step = dmesh.make_train_step(fargs[1], torch.zeros(3, device=dev), H, W)
     losses, step_times = [], []
     for _ in range(5):
@@ -2848,11 +2980,15 @@ def main() -> int:
         losses.append(float(loss))
     check(all(np.isfinite(x) for x in losses), f"train losses {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
-    step_ms = float(np.mean(step_times[1:]))
-    log(f"train step (Adam 1e-2, zero target): losses "
+    check((step.captures, step.replays) == (1, 4),
+          f"train step: {step.captures} captures, {step.replays} replays")
+    step_ms = float(np.mean(step_times[2:]))
+    log(f"train step (Adam 1e-2 capturable, zero target): losses "
         + ", ".join(f"{x:.6f}" for x in losses))
     log(f"timing: fwd+bwd {fb_ms:.3f} ms/frame; train step {step_ms:.3f} "
-        f"ms/step (mean of steps 2-5; step 1 {step_times[0]:.3f} ms)")
+        f"ms/step (mean of the replays, steps 3-5; step 1, eager, "
+        f"{step_times[0]:.3f} ms; step 2, capture and replay, "
+        f"{step_times[1]:.3f} ms)")
 
     # ---- B=2 with gradients: per-view depth and intensity gradients
     lv2 = leaves_of(u2)
@@ -2892,6 +3028,13 @@ def main() -> int:
     log(f"phases 26-27 (fuzz sweeps, dispatch ladder) took "
         f"{time.perf_counter() - t_new:.1f} s; the script "
         f"{time.perf_counter() - t_main:.1f} s until here")
+    t_new = time.perf_counter()
+    graphs = step_capture_phases(dev)
+    log(f"phase 28 (step capture) took {time.perf_counter() - t_new:.1f} s; "
+        f"the script {time.perf_counter() - t_main:.1f} s until here")
+    graph_launches = {k: {"per_capture": graphs["headline"][
+        "launches_per_capture"][k], "replays": graphs["headline"]["replays"]}
+        for k in TRI_GRAPH_KERNELS}
     sharded = {k: v for kind in ("tri", "tet")
                for k, v in multi_view[kind]["launches_per_rank_step"].items()}
     for entry in (*tet_kernels, k5_entry):
@@ -2905,6 +3048,7 @@ def main() -> int:
          "launches": launches["tri_fwd_composite"],
          "launches_serving_path": fwd_launches,
          "launches_sharded_per_rank_step": sharded["tri_fwd_composite"],
+         "launches_captured_step": graph_launches["tri_fwd_composite"],
          "max_abs_err": max(err_small, err_head),
          "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -2919,12 +3063,14 @@ def main() -> int:
          "replaces": "dmesh_renderer_tpu/ops/tri_binned.py:797",
          "launches": launches["tri_bwd_composite"],
          "launches_sharded_per_rank_step": sharded["tri_bwd_composite"],
+         "launches_captured_step": graph_launches["tri_bwd_composite"],
          "max_abs_err": max(k2_err_s, k2_err_h),
          "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
          "visits": b_visits, "active_visits": b_active,
          "live_slot_quarters": b_live, "walked_slots": b_rows,
          "walked_slot_quarters": b_pairs, "slots": S_slots,
+         "slot_capacity": int(keys.slot_face.numel()),
          "record_bytes": rec_bytes,
          "tri_frame_host_syncs": diag["traces"]["tri"]["host_syncs"]},
         {**common, "name": "seg_sum",
@@ -2934,6 +3080,7 @@ def main() -> int:
                      "not a TPU kernel)",
          "launches": launches["seg_sum"],
          "launches_tet_train": tet_train_info["tet_seg_sum_launches"],
+         "launches_captured_step": graph_launches["seg_sum"],
          "launches_sharded_per_rank_step": {
              k: multi_view[k]["seg_sum_per_rank_step"]
              for k in ("tri", "tet")},
@@ -2954,7 +3101,7 @@ def main() -> int:
         "train_losses": losses, **tet_info, **tet_train_info,
         "diagnostics": diag, "launch_path_split_us": split_us,
         "multi_view": multi_view, "checkpoint": ckpt, "examples": examples,
-        "fuzz": fuzz, "dispatch_ladder": ladder,
+        "fuzz": fuzz, "dispatch_ladder": ladder, "step_capture": graphs,
         "experiments": {k: _jsonable(v) for k, v in answers.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

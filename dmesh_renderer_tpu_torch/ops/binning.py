@@ -7,7 +7,7 @@ A port of the JAX package's ``ops/binning.py``, written the plain GPU way
    over [B, F]) by mean depth, or by minimum depth for the tet first hit;
 2. exact emission (the tri path; the tet first hit emits every tile of
    each face's bounding rect): each emitting face expands into (face, tile-row) runs
-   and each run into its covered tiles (``repeat_interleave``); a tile row
+   and each run into its covered tiles; a tile row
    is kept only where the conservative corner test of
    ``_row_tile_interval`` passes, so only pairs that can cover a pixel are
    emitted;
@@ -15,6 +15,15 @@ A port of the JAX package's ``ops/binning.py``, written the plain GPU way
    card), which keeps the emission order -- depth-sorted face, tile row,
    tx -- inside every tile;
 4. tile ranges by ``searchsorted``.
+
+The exact path has the JAX package's static shapes: the run table holds
+``_run_capacity`` runs and the slot table ``kcap`` slots whatever the
+scene, each position finds its owner by ``searchsorted`` over the inclusive
+prefix sum of the counts, and the positions past the live count take the
+sentinel tile key ``B * n_tiles``, which sorts them last and out of every
+tile's range. No count is read on the host, so the path runs inside a CUDA
+graph capture. The bbox path (the tet first hit) still sizes its tables
+from counts read on the host.
 
 The result is the same set and per-tile order of pairs as the JAX package,
 under the same capacity policy: at most ``kcap`` slots and ``run_cap`` runs
@@ -51,8 +60,10 @@ class BinnedKeys(NamedTuple):
 
     ``slot_face`` holds indices into the per-view depth-sorted face order
     (view * F + rank); ``sigma`` maps that order back to original
-    view * F + face ids."""
-    slot_face: torch.Tensor  # [S] int32, S = min(total, kcap)
+    view * F + face ids. On the exact path S = kcap and the live slots,
+    min(total, kcap) = ``ends[-1]`` of them, come first; the rest hold the
+    sentinel B * F and lie in no tile's range."""
+    slot_face: torch.Tensor  # [S] int32, S = kcap (bbox path: min(total, kcap))
     sigma: torch.Tensor      # [B*F] int64
     starts: torch.Tensor     # [B * n_tiles] int32
     ends: torch.Tensor       # [B * n_tiles] int32
@@ -151,10 +162,23 @@ def _depth_presort(pre: dict, emit_counts: torch.Tensor,
 
 def _expand(counts: torch.Tensor, n_keep: int) -> torch.Tensor:
     """Owner index of each of the first ``n_keep`` items when item i owns
-    ``counts[i]`` consecutive entries."""
+    ``counts[i]`` consecutive entries (the bbox path: one host read)."""
     idx = torch.arange(counts.numel(), device=counts.device)
     total = int(counts.sum())
     return torch.repeat_interleave(idx, counts, output_size=total)[:n_keep]
+
+
+def owners(counts: torch.Tensor, n: int):
+    """``_expand``'s owners at a static size, with no host read: the owner
+    of each of ``n`` positions by ``searchsorted`` over the inclusive prefix
+    sum of ``counts``. Returns (owner [n], clamped to the last item past
+    the counts' total; live [n], the positions below the total; the
+    exclusive prefix sum of ``counts``; their total, a 0-d tensor)."""
+    incl = torch.cumsum(counts, 0)
+    pos = torch.arange(n, dtype=incl.dtype, device=counts.device)
+    owner = torch.searchsorted(incl, pos, right=True)
+    live = owner < counts.numel()
+    return owner.clamp_(max=counts.numel() - 1), live, incl - counts, incl[-1]
 
 
 def _run_capacity(bf: int, kcap: int, run_cap: int | None = None) -> int:
@@ -182,94 +206,134 @@ def overflow_warning(total: int, kcap: int, context: str) -> None:
         f"dmesh_renderer_tpu_torch ({context}): tile-binning key capacity "
         f"overflow ({total} (face, tile) pairs emitted > capacity {kcap}). "
         "The FARTHEST faces of the highest view drop their tiles first. "
-        "Raise the key capacity.", stacklevel=3)
+        "Raise the key capacity.", stacklevel=4)
+
+
+def is_capturing(device: torch.device) -> bool:
+    """Whether ``device``'s current stream is capturing a CUDA graph (never
+    on the CPU)."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def warn_if_overflow(overflow: torch.Tensor, total: torch.Tensor, kcap: int,
+                     context: str) -> None:
+    """Read ``overflow`` and ``total`` in one transfer (the frame's one
+    host read) and warn (``overflow_warning``) if the flag is set. While
+    the stream captures a CUDA graph nothing is read: the flag stays data,
+    as the JAX package leaves it on a backend without host callbacks."""
+    if is_capturing(overflow.device):
+        return
+    flag, n = torch.stack([overflow.to(torch.int64),
+                           total.to(torch.int64)]).tolist()
+    if flag:
+        overflow_warning(n, kcap, context)
 
 
 def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
                   tile_px: int | None = None,
                   run_cap: int | None = None,
-                  sort_by: str = "depth",
-                  warn_context: str | None = None) -> BinnedKeys:
+                  sort_by: str = "depth") -> BinnedKeys:
     """Build the tile-sorted pair table from ``preprocess_faces`` output.
 
-    With ``tile_px`` (the tri render path), exact-coverage emission;
-    without it (the tet first hit), or above the exact path's capacity
-    limit, every tile of the bbox rect is emitted, as in the JAX package.
+    With ``tile_px`` (the tri render path), exact-coverage emission at
+    static sizes (no host read; see the module docstring); without it (the
+    tet first hit), or above the exact path's capacity limit, every tile of
+    the bbox rect is emitted, as in the JAX package, from counts read on
+    the host, which raises while a CUDA graph is being captured.
     ``sort_by``: the per-face depth key that orders each tile's list,
-    "depth" (mean depth, tri) or "min_depth" (tet). With ``warn_context``
-    an overflow also warns (``overflow_warning``); the decision comes from
-    the counts this function reads on the host anyway."""
+    "depth" (mean depth, tri) or "min_depth" (tet). The overflow is data
+    (``warn_if_overflow`` reads it)."""
     if sort_by not in ("depth", "min_depth"):
         raise ValueError(f"sort_by must be 'depth' or 'min_depth', got "
                          f"{sort_by!r}")
     tiles = pre["tiles"]
     B, F = tiles.shape
     dev = tiles.device
+    if not (tile_px is not None and kcap < _EXACT_KCAP_MAX and tiles.numel()):
+        if is_capturing(dev):
+            raise RuntimeError(
+                "emit_and_sort: the bbox emission path (the tet first hit, "
+                f"or a key capacity >= {_EXACT_KCAP_MAX}) sizes its tables "
+                "from counts read on the host and cannot run while a CUDA "
+                "graph is being captured")
+        return _emit_bbox(pre, grid_x, grid_y, kcap, sort_by)
     n_tiles = grid_x * grid_y
-    exact = tile_px is not None and kcap < _EXACT_KCAP_MAX and tiles.numel()
-
     rmin, rmax = pre["rect_min"], pre["rect_max"]
-    if exact:
-        counts = exact_tile_counts(pre, grid_x, grid_y, tile_px)
-    else:
-        counts = tiles
+    counts = exact_tile_counts(pre, grid_x, grid_y, tile_px)
     sigma = _depth_presort(pre, counts, sort_by)
     take = lambda x: x.reshape(B * F, *x.shape[2:])[sigma]
 
-    # --- (face, tile-row) runs, in emission order ---
+    # --- (face, tile-row) runs, in emission order, at the run capacity ---
     ny_s = take(rmax[..., 1] - rmin[..., 1]).long()
     ny_eff = torch.where(take(counts) > 0, ny_s, 0)
-    n_rows = int(ny_eff.sum())
-    if exact:
-        nr_cap = _run_capacity(B * F, kcap, run_cap)
-        row_overflow = n_rows > nr_cap
-        n_runs = min(n_rows, nr_cap)
-    else:
-        row_overflow = False
-        n_runs = n_rows
+    nr_cap = _run_capacity(B * F, kcap, run_cap)
+    runq, run_live, row_excl, n_rows = owners(ny_eff, nr_cap)
+    ridx = torch.arange(nr_cap, device=dev) - row_excl[runq]
+    rx = take(rmin[..., 0])[runq].float()
+    nx = take(rmax[..., 0] - rmin[..., 0])[runq].float()
+    cols = [take(pre[k][e])[runq].float()
+            for k in ("edge_a", "edge_b", "edge_c") for e in range(3)]
+    tyf = take(rmin[..., 1])[runq].float() + ridx.float()
+    lo_f, cnt_f = _row_tile_interval(cols[0:3], cols[3:6], cols[6:9], rx, nx,
+                                     tyf, tile_px, grid_x)
+    risk = take(_edge_wrap_risk(pre, grid_x, grid_y, tile_px))[runq]
+    lo_f = torch.where(risk, rx, lo_f)
+    cnt_f = torch.where(risk, nx, cnt_f)
+    rcnt = torch.where(run_live, sat_i32(cnt_f).long(), 0)
+    rlo = sat_i32(lo_f.clamp(0.0, grid_x - 1.0)).long()
+    rty = sat_i32(tyf.clamp(0.0, grid_y - 1.0)).long()
+
+    # --- runs -> slots (the first kcap in emission order are kept) ---
+    run, live, excl, total = owners(rcnt, kcap)
+    k = torch.arange(kcap, device=dev) - excl[run]
+    bf = runq[run]
+    tile_key = (bf // F) * n_tiles + rty[run] * grid_x + rlo[run] + k
+    tile_key = torch.where(live, tile_key, B * n_tiles)
+    bf = torch.where(live, bf, B * F)
+    overflow = (total > kcap) | (n_rows > nr_cap)
+    return _sort_and_ranges(tile_key, bf, sigma, B * n_tiles, total,
+                            overflow)
+
+
+def _emit_bbox(pre, grid_x, grid_y, kcap, sort_by):
+    """Bbox emission: every tile of each emitting face's rect, the tables
+    sized from counts read on the host."""
+    tiles = pre["tiles"]
+    B, F = tiles.shape
+    dev = tiles.device
+    n_tiles = grid_x * grid_y
+    rmin, rmax = pre["rect_min"], pre["rect_max"]
+    sigma = _depth_presort(pre, tiles, sort_by)
+    take = lambda x: x.reshape(B * F, *x.shape[2:])[sigma]
+    ny_s = take(rmax[..., 1] - rmin[..., 1]).long()
+    ny_eff = torch.where(take(tiles) > 0, ny_s, 0)
+    n_runs = int(ny_eff.sum())
     runq = _expand(ny_eff, n_runs)  # sorted-space face of each run
     row_excl = torch.cumsum(ny_eff, 0) - ny_eff
     ridx = torch.arange(n_runs, device=dev) - row_excl[runq]
-    rx = take(rmin[..., 0])[runq]
-    nx = take(rmax[..., 0] - rmin[..., 0])[runq]
-    ty = take(rmin[..., 1])[runq].long() + ridx
-    if exact:
-        cols = [take(pre[k][e])[runq].float()
-                for k in ("edge_a", "edge_b", "edge_c") for e in range(3)]
-        tyf = take(rmin[..., 1])[runq].float() + ridx.float()
-        lo_f, cnt_f = _row_tile_interval(
-            cols[0:3], cols[3:6], cols[6:9], rx.float(), nx.float(), tyf,
-            tile_px, grid_x)
-        risk = take(_edge_wrap_risk(pre, grid_x, grid_y, tile_px))[runq]
-        lo_f = torch.where(risk, rx.float(), lo_f)
-        cnt_f = torch.where(risk, nx.float(), cnt_f)
-        rcnt = sat_i32(cnt_f).long()
-        rlo = sat_i32(lo_f.clamp(0.0, grid_x - 1.0)).long()
-        rty = sat_i32(tyf.clamp(0.0, grid_y - 1.0)).long()
-    else:
-        rcnt, rlo, rty = nx.long(), rx.long(), ty
-
-    # --- runs -> slots (the first kcap in emission order are kept) ---
+    rcnt = take(rmax[..., 0] - rmin[..., 0])[runq].long()
+    rlo = take(rmin[..., 0])[runq].long()
+    rty = take(rmin[..., 1])[runq].long() + ridx
     total = rcnt.sum()
-    n_total = int(total)
-    n_slots = min(n_total, kcap)
+    n_slots = min(int(total), kcap)
     run = _expand(rcnt, n_slots)
     excl = torch.cumsum(rcnt, 0) - rcnt
     k = torch.arange(n_slots, device=dev) - excl[run]
     bf = runq[run]
     tile_key = (bf // F) * n_tiles + rty[run] * grid_x + rlo[run] + k
-    overflow = (total > kcap) | row_overflow
-    if warn_context is not None and (n_total > kcap or row_overflow):
-        overflow_warning(n_total, kcap, warn_context)
     return _sort_and_ranges(tile_key, bf, sigma, B * n_tiles, total,
-                            overflow)
+                            total > kcap)
 
 
 def _sort_and_ranges(tile_key, bf, sigma, n_tiles_total, total, overflow):
     """Stable sort of the slots by tile key (keeps the emission order inside
-    every tile) and each tile's [start, end) range."""
+    every tile; int32 keys where they fit, half the radix passes of int64)
+    and each tile's [start, end) range."""
+    if n_tiles_total < 2 ** 31:
+        tile_key = tile_key.to(torch.int32)
     tile_key_s, perm = torch.sort(tile_key, stable=True)
-    tids = torch.arange(n_tiles_total, device=tile_key.device)
+    tids = torch.arange(n_tiles_total, dtype=tile_key.dtype,
+                        device=tile_key.device)
     starts = torch.searchsorted(tile_key_s, tids, right=False)
     ends = torch.searchsorted(tile_key_s, tids, right=True)
     return BinnedKeys(
@@ -278,7 +342,7 @@ def _sort_and_ranges(tile_key, bf, sigma, n_tiles_total, total, overflow):
         starts=starts.to(torch.int32),
         ends=ends.to(torch.int32),
         total=total,
-        overflow=torch.as_tensor(overflow, device=tile_key.device),
+        overflow=overflow,
     )
 
 

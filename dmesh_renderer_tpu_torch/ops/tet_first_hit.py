@@ -22,7 +22,7 @@ import torch
 
 from ..kernels import launch
 from ..utils.config import BIN_TILE
-from .binning import emit_and_sort
+from .binning import emit_and_sort, warn_if_overflow
 from .geometry import cross
 
 TILE = BIN_TILE  # side of the pixel tile one kernel block covers
@@ -204,13 +204,13 @@ def first_intersection_binned(verts, faces, pre, cam_o, ray_d, height: int,
     list slots the kernel staged."""
     gx = (width + TILE - 1) // TILE
     gy = (height + TILE - 1) // TILE
-    keys = emit_and_sort(pre, gx, gy, kcap, sort_by="min_depth",
-                         warn_context="tet first hit; a dropped face cannot "
-                                      "be hit")
+    keys = emit_and_sort(pre, gx, gy, kcap, sort_by="min_depth")
     table = build_first_hit_table(verts, faces, cam_o, pre["min_depth"],
                                   pre["max_depth"])[keys.sigma]
     face, t, u, v, walked = first_hit(keys.starts, keys.ends, keys.slot_face,
                                       table, ray_d, B, height, width)
+    warn_if_overflow(keys.overflow, keys.total, kcap,
+                     "tet first hit; a dropped face cannot be hit")
     N = height * width
     return (face.reshape(B, N), t.reshape(B, N), u.reshape(B, N),
             v.reshape(B, N),

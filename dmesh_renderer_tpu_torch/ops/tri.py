@@ -42,24 +42,41 @@ class _ConstantZeros(torch.autograd.Function):
             torch.zeros(s, dtype=torch.float32, device=d) for s, d in ctx.like)
 
 
+def tri_strategy(n_verts: int, n_faces: int, device: torch.device,
+                 force: str | None = None) -> str:
+    """The path ``render_tri_auto`` takes: "empty" (no vertices), "oracle"
+    or "binned"."""
+    if force not in (None, "oracle", "binned"):
+        raise ValueError(
+            f"force must be None, 'oracle' or 'binned', got {force!r}")
+    if n_verts == 0:
+        return "empty"
+    if n_faces == 0:
+        # no faces: every pixel blends nothing -> bg and depth 1; the
+        # binned path needs a face, so this always takes the oracle
+        return "oracle"
+    threshold = (BINNED_THRESHOLD_CPU if device.type == "cpu"
+                 else BINNED_THRESHOLD_GPU)
+    return force or ("binned" if n_faces > threshold else "oracle")
+
+
 def render_tri_auto(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
                     inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
                     height: int, width: int, *, force: str | None = None,
                     kcap: int | None = None, with_aux: bool = False,
-                    run_cap: int | None = None):
+                    run_cap: int | None = None, warn_overflow: bool = True):
     """Render triangles; the strategy follows the face count. Gradients
     reach verts, verts_color, faces_opacity, verts_depth and faces_intense.
 
     force: "oracle" or "binned" overrides the choice. kcap/run_cap: the
     binned path's capacities (None: heuristics). with_aux: also return
     ``(overflow, num_rendered)``; the oracle has no capacity and reports
-    ``(False, -1)``."""
-    if force not in (None, "oracle", "binned"):
-        raise ValueError(
-            f"force must be None, 'oracle' or 'binned', got {force!r}")
+    ``(False, -1)``. warn_overflow: the binned path reads the overflow flag
+    once after its forward and warns (``render_tri_binned``)."""
     dev = verts.device
     B = mv_t.shape[0]
-    if verts.shape[0] == 0:
+    strategy = tri_strategy(verts.shape[0], faces.shape[0], dev, force)
+    if strategy == "empty":
         # with no vertices the reference returns its zero-initialised
         # outputs as they are -- not background-filled
         color, depth = _ConstantZeros.apply(
@@ -69,22 +86,13 @@ def render_tri_auto(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
             return color, depth, (torch.tensor(False, device=dev),
                                   torch.tensor(0, device=dev))
         return color, depth
-    n_faces = faces.shape[0]
-    if n_faces == 0:
-        # no faces: every pixel blends nothing -> bg and depth 1; the
-        # binned path needs a face, so this always takes the oracle
-        force = "oracle"
-    threshold = (BINNED_THRESHOLD_CPU if dev.type == "cpu"
-                 else BINNED_THRESHOLD_GPU)
-    strategy = force or ("binned" if n_faces > threshold else "oracle")
-
     if strategy == "binned":
         from .tri_binned import render_tri_binned
 
         return render_tri_binned(
             verts, faces, verts_color, faces_opacity, mv_t, proj_t,
             inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
-            height, width, kcap, with_aux, run_cap)
+            height, width, kcap, with_aux, run_cap, warn_overflow)
 
     out = render_tri_oracle(
         verts, faces, verts_color, faces_opacity, mv_t, proj_t,

@@ -30,6 +30,13 @@ the sorted face tables, the rays and K1's state from the forward):
 
 Every sum has a fixed order, so the gradients are bitwise deterministic.
 
+Every tensor of a frame is sized from B, F, H, W and the capacities, never
+from the scene (the records at the slot capacity, the walked total kept on
+the device), and the frame reads one value on the host: the overflow flag,
+after the forward (``binning.warn_if_overflow``), and none while a CUDA
+graph is being captured. So a frame, or a whole train step, can be
+captured and replayed (``models.dmesh.make_train_step``).
+
 The face table is compact: [B*F, 27] f32 (TV, E1, E2, Q, 9 corner colours,
 3 vertex depths, opacity, intensity, nondeg) and [B*F, 9] int32 edge
 coefficients (A1 A2 A3 B1 B2 B3 C1 C2 C3), rows in the per-view
@@ -44,7 +51,12 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import launch
 from ..utils.config import BIN_TILE, T_EPS
-from .binning import default_key_capacity, emit_and_sort
+from .binning import (
+    default_key_capacity,
+    emit_and_sort,
+    owners,
+    warn_if_overflow,
+)
 from .geometry import (
     clamp_bary_uv,
     clamp_bary_uv_grad,
@@ -257,8 +269,8 @@ def walked_slots(starts, ends, n_contrib, B: int, H: int, W: int):
     min(list length, the largest n_contrib of its 32x32 pixels). Every
     later slot's records are zero, so ``bwd_composite`` writes only the
     walked prefixes, tile after tile. Returns (offs [n_tiles + 1] int32,
-    the exclusive prefix sum of the walked counts, and their total Wk as a
-    Python int: the one value read on the host, which sizes the buffer)."""
+    the exclusive prefix sum of the walked counts, and their total Wk =
+    offs[-1], a 0-d tensor on the device: nothing is read on the host)."""
     gx = (W + TILE - 1) // TILE
     gy = (H + TILE - 1) // TILE
     nc = n_contrib
@@ -268,7 +280,17 @@ def walked_slots(starts, ends, n_contrib, B: int, H: int, W: int):
     walked = torch.minimum(ends - starts, tile_max)
     offs = walked.new_zeros(walked.numel() + 1)
     torch.cumsum(walked, 0, out=offs[1:])
-    return offs, int(offs[-1])
+    return offs, offs[-1]
+
+
+def record_segments(slot_ids, slot_face, n_rows: int):
+    """The depth-sorted face row of each record row, ``slot_face[slot_ids]``;
+    ``n_rows`` (past every row, so ``segment_csr``'s offsets leave it out)
+    for the sentinel id ``slot_face.numel()`` of the rows past the walked
+    total, and for the slots past the live ones (``slot_face`` holds
+    ``n_rows`` there)."""
+    ext = torch.nn.functional.pad(slot_face, (0, 1), value=n_rows)
+    return ext[slot_ids.long()]
 
 
 def bwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d, T,
@@ -278,15 +300,18 @@ def bwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d, T,
     The first nine arguments are ``fwd_composite``'s inputs; T, prevT and
     n_contrib [B, H, W] are its outputs; gin [B, 5, H, W] f32 holds per
     pixel (dL/dC rgb, dL/dD, bg . dL/dC + dL/dD). Returns (records
-    [Wk, 4, REC_COLS] f32, slot_ids [Wk] int32). Row i holds the slot
-    ``slot_ids[i]`` of a tile's walked prefix (``walked_slots``; tiles in
+    [S, 4, REC_COLS] f32, slot_ids [S] int32), S = ``slot_face.numel()``,
+    the static slot capacity. Row i < Wk (``walked_slots``' total) holds the
+    slot ``slot_ids[i]`` of a tile's walked prefix (tiles in
     order, each prefix in slot order, so ``slot_ids`` increases), and for
     quarter q (the 16x16 quarter (q // 2, q % 2) of the slot's tile) the
     sums over the quarter's pixels of dL/dalpha, dL/dp0..dp2 (9), the
     vertex-colour moments sum i_k dL/dcolor_c (9, k-major) and the
     vertex-depth moments sum i_k dL/ddepth (3). A walked slot that no pixel
     of a quarter blended has zeros there. The slots past a tile's walked
-    prefix have no row: their records would be zero.
+    prefix have no row: their records would be zero. The rows from Wk on
+    are not written (the plain version leaves zeros) and their slot id is
+    the sentinel S (``record_segments``), so the reduce never reads them.
 
     On CUDA tensors this launches the kernel of csrc/tri_bwd.cu (and raises
     if it cannot); on CPU tensors it runs ``bwd_composite_plain``."""
@@ -301,10 +326,11 @@ def bwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d, T,
     tensors = [x.contiguous() for x in (starts, ends, slot_face, face_f32,
                                         face_i32, ray_d, T, prevT, n_contrib,
                                         gin)]
-    offs, total = walked_slots(tensors[0], tensors[1], tensors[8], B, H, W)
+    offs, _total = walked_slots(tensors[0], tensors[1], tensors[8], B, H, W)
     dev = ray_d.device
-    rec = torch.empty((total, 4, REC_COLS), dtype=torch.float32, device=dev)
-    slot_ids = torch.empty((total,), dtype=torch.int32, device=dev)
+    cap = slot_face.numel()
+    rec = torch.empty((cap, 4, REC_COLS), dtype=torch.float32, device=dev)
+    slot_ids = torch.full((cap,), cap, dtype=torch.int32, device=dev)
     launch("tri_bwd", "tri_bwd_composite", tensors + [offs, rec, slot_ids],
            [B, H, W], dev)
     bwd_composite.launches += 1
@@ -373,19 +399,22 @@ def bwd_composite_plain(starts, ends, slot_face, face_f32, face_i32, ray_d,
     start = starts.long()[tile]
     count = (ends - starts).long()[tile]
     n_eff = torch.minimum(count, nc.max(dim=1).values)
-    offs, total = walked_slots(starts, ends, n_contrib, B, H, W)
+    offs, _total = walked_slots(starts, ends, n_contrib, B, H, W)
     comp = offs.long()[tile]  # the quarter's tile's first compacted row
+    cap = slot_face.numel()
 
     zeros = lambda: torch.zeros(NQ, QUAD * QUAD, dtype=torch.float32,
                                 device=dev)
     st = {"T": fpT.clone(), "first": torch.ones_like(nc, dtype=torch.bool)}
     for k in ("la", "lr", "lg", "lb", "ld", "ar", "ag", "ab", "ad"):
         st[k] = zeros()
-    rec = torch.zeros((total, 4, REC_COLS), dtype=torch.float32, device=dev)
-    walked = (offs[1:] - offs[:-1]).long()
-    slot_ids = (torch.arange(total, device=dev) - torch.repeat_interleave(
-        offs[:-1].long() - starts.long(), walked, output_size=total)
-    ).to(torch.int32)
+    rec = torch.zeros((cap, 4, REC_COLS), dtype=torch.float32, device=dev)
+    # row offs[t] + p is slot starts[t] + p; the rows past the walked total
+    # take the sentinel id cap
+    tile_of, live, first, _total = owners((offs[1:] - offs[:-1]).long(), cap)
+    slot_ids = torch.where(
+        live, starts.long()[tile_of] + torch.arange(cap, device=dev)
+        - first[tile_of], cap).to(torch.int32)
 
     n_max = int(n_eff.max()) if NQ else 0
     for pos in range(n_max - 1, -1, -1):
@@ -564,9 +593,10 @@ def reduce_records(rec, slot_ids, slot_face, sigma, face_f32_sorted, faces,
 def records_to_faces(rec, slot_ids, slot_face, sigma, face_f32_sorted,
                      faces_intense):
     """The record reduce: records summed per depth-sorted row in slot
-    order (segment sum over the Wk * 4 rows, keyed by
-    ``slot_face[slot_ids]``), un-permuted to (view, face) through
-    ``sigma``, and summed over views where the parameter is shared.
+    order (segment sum over the record rows, keyed by
+    ``record_segments``: the rows past the walked total are left out),
+    un-permuted to (view, face) through ``sigma``, and summed over views
+    where the parameter is shared.
 
     The slots that have no row hold zero records, and every sum starts at
     +0.0, so it never is -0.0 and adding +-0.0 leaves it as it is: the
@@ -575,7 +605,8 @@ def records_to_faces(rec, slot_ids, slot_face, sigma, face_f32_sorted,
     Returns (g_fopacity [F], g_p [F, 3, 3], g_vc [F, 3, 3] per face corner,
     g_vd [B, F, 3], g_fintense [B, F])."""
     B, F = faces_intense.shape
-    csr = segment_csr(slot_face[slot_ids], B * F, inner=4)
+    csr = segment_csr(record_segments(slot_ids, slot_face, B * F), B * F,
+                      inner=4)
     g = seg_sum(rec.reshape(-1, REC_COLS), csr)  # [B*F, 22], sorted rows
     # dL/dintensity = sum_k,c colour[k, c] * (sum_p i_k dL/dcolor_c), the
     # nine products added in order
@@ -613,10 +644,7 @@ def _forward(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
 
     ndc, img = project_verts(verts, mv_t, proj_t, width, height)
     pre = preprocess_faces(ndc, img, faces, width, height, TILE, TILE)
-    keys = emit_and_sort(
-        pre, gx, gy, kcap, tile_px=TILE, run_cap=run_cap,
-        warn_context="render_tri_binned; raise "
-                     "TriRenderSettings.key_capacity")
+    keys = emit_and_sort(pre, gx, gy, kcap, tile_px=TILE, run_cap=run_cap)
     face_f32, face_i32 = build_face_table(
         verts, faces, verts_color, faces_opacity, verts_depth, faces_intense,
         img, inv_mv_t[:, 3, :3])
@@ -670,22 +698,30 @@ class _RenderTriBinned(torch.autograd.Function):
 def render_tri_binned(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
                       inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
                       height: int, width: int, kcap: int | None = None,
-                      with_aux: bool = False, run_cap: int | None = None):
+                      with_aux: bool = False, run_cap: int | None = None,
+                      warn_overflow: bool = True):
     """Tile-binned tri renderer.
 
     ``kcap``: (face, tile) key capacity (None: ``default_key_capacity``);
     ``run_cap``: (face, tile-row) run capacity (None: heuristic). Pairs
     past a capacity are dropped farthest first (see ops/binning.py).
     Returns (color [B, 3, H, W], depth [B, 1, H, W]) and, with
-    ``with_aux``, ``(overflow bool[], num_rendered int[])``.
+    ``with_aux``, ``(overflow bool[], num_rendered int[])``. With
+    ``warn_overflow`` the overflow flag is read once after the forward and
+    an overflow warns (never while a CUDA graph is being captured).
 
     Differentiable in verts, verts_color, faces_opacity, verts_depth and
     faces_intense when any of them requires grad; otherwise autograd
     records nothing and the forward's residuals are freed on return."""
+    if kcap is None:
+        kcap = default_key_capacity(mv_t.shape[0], faces.shape[0])
     color, depth, overflow, total = _RenderTriBinned.apply(
         verts, faces, verts_color, faces_opacity, mv_t, proj_t, inv_mv_t,
         inv_proj_t, verts_depth, faces_intense, bg, height, width, kcap,
         run_cap)
+    if warn_overflow:
+        warn_if_overflow(overflow, total, kcap, "render_tri_binned; raise "
+                         "TriRenderSettings.key_capacity")
     if with_aux:
         return color, depth, (overflow, total)
     return color, depth

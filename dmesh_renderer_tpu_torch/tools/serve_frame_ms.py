@@ -63,7 +63,10 @@ def _frame_stats(frame, dev, reps):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         sync()
-        syncs = sum("synchroniz" in str(w.message) for w in seen)
+        # the first call of set_sync_debug_mode also warns that the mode
+        # is a prototype; only the syncs count
+        syncs = sum(str(w.message).startswith("called a synchronizing")
+                    for w in seen)
     return float(np.median(times)), syncs
 
 

@@ -121,8 +121,11 @@ def fit(device, ranks, steps, out_dir):
             x.requires_grad_(True)
         if mesh is not None:
             scene = parallel.replicate_params(mesh, scene)
-        return init_train_state(scene,
-                                lambda p: torch.optim.Adam(p, lr=2e-2))
+        # capturable: on the card the step runs as a CUDA graph (the
+        # optimiser's step count stays on the device)
+        return init_train_state(
+            scene, lambda p: torch.optim.Adam(
+                p, lr=2e-2, capturable=dev.type == "cuda"))
 
     if mesh is not None:
         batch = parallel.shard_view_batch(mesh, batch)

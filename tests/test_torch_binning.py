@@ -45,11 +45,16 @@ def _jax_lists(keys, n_tiles):
 
 
 def _assert_same_keys(keys, tk, n_tiles):
+    """The same total, flag and tile lists; the live slots, ``ends[-1]``
+    of them, come first, the rest of a static table hold the sentinel."""
     assert int(keys.total) == int(tk.total)
     assert bool(keys.overflow) == bool(tk.overflow)
     ids, counts = _jax_lists(keys, n_tiles)
     np.testing.assert_array_equal(counts, (tk.ends - tk.starts).numpy())
-    np.testing.assert_array_equal(ids, tk.sigma[tk.slot_face.long()].numpy())
+    n = int(tk.ends[-1])
+    np.testing.assert_array_equal(ids, tk.sigma[tk.slot_face[:n].long()]
+                                  .numpy())
+    assert bool((tk.slot_face[n:] == tk.sigma.numel()).all())
 
 
 @pytest.mark.parametrize("name", ["binned_fixture", "near_plane",

@@ -109,7 +109,10 @@ K2_EDGES = {
 
 @pytest.mark.parametrize("case", list(CASES) + list(K2_EDGES))
 def test_k2_matches_plain(case, cuda):
-    """K2's compacted records and slot ids against its plain version."""
+    """K2's compacted records and slot ids against its plain version: the
+    walked rows, the first Wk of the static slot capacity, bit for bit; the
+    rows past them carry the sentinel slot id (their records are not
+    written)."""
     if case in K2_EDGES:
         args, h, w = K2_EDGES[case]()
         b, seed = args[4].shape[0], 3
@@ -121,7 +124,9 @@ def test_k2_matches_plain(case, cuda):
     g = torch.Generator().manual_seed(seed)
     gin = torch.randn((b, 5, h, w), generator=g).to(cuda)
     offs, total = ttb.walked_slots(keys.starts, keys.ends, state[2], b, h, w)
-    poison_allocator(total, cuda)
+    total = int(total)
+    cap = keys.slot_face.numel()
+    poison_allocator(cap, cuda)
     before = ttb.bwd_composite.launches
     got, ids = ttb.bwd_composite(*inputs[:6], *state, gin, *inputs[6:])
     torch.cuda.synchronize()
@@ -129,13 +134,13 @@ def test_k2_matches_plain(case, cuda):
     want, want_ids = ttb.bwd_composite_plain(*inputs[:6], *state, gin,
                                              *inputs[6:])
     assert bool((want != 0).any())
-    assert got.shape == want.shape and torch.equal(ids, want_ids)
-    assert _rel(got, want.cpu()) <= 1e-6
-    assert total == got.shape[0]
+    assert got.shape == want.shape == (cap, 4, ttb.REC_COLS)
+    assert torch.equal(ids, want_ids) and bool((ids[total:] == cap).all())
+    assert _rel(got[:total], want[:total].cpu()) <= 1e-6
     if case == "empty_tiles":
         assert bool((offs[1:] == offs[:-1]).any())
     if case == "whole_stack":
-        assert total == keys.slot_face.numel()
+        assert total == int(keys.ends[-1])
 
 
 def test_seg_sum_bitwise(cuda):
@@ -253,6 +258,9 @@ def test_stages_match_cpu(case, cuda):
         rec, ids = ttb.bwd_composite(*inputs[:6], *state, gin, b, h, w)
         grads = ttb.reduce_records(rec, ids, keys.slot_face, keys.sigma,
                                    inputs[3], t[1], t[9], t[0].shape[0])
+        # the walked rows: the card leaves the rows past them unwritten
+        rec = rec[:int(ttb.walked_slots(keys.starts, keys.ends, state[2], b,
+                                         h, w)[1])]
         names = ("starts", "ends", "slot_face", "face_f32", "face_i32",
                  "ray_d", "T", "prevT", "n_contrib", "color", "depth",
                  "sigma", "gin", "records", "slot_ids", "g_verts",

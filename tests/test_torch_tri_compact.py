@@ -10,6 +10,10 @@ bits of the full [S, 4, 22] layout, one row per slot. The plain version
 with every slot walked (``_full_walk``) writes that layout, each record
 at its slot as the kernel did before the compaction.
 
+Both are sized at the static slot capacity S = ``slot_face.numel()`` (the
+key capacity): the walked rows come first, and the rows past the walked
+total carry the sentinel slot id S, which the reduce leaves out.
+
 The JAX package is not run here: it compacts its records the same way
 (``dmesh_renderer_tpu/ops/tri_binned.py::_reduce_records``), and
 test_torch_tri_bwd.py holds the port's gradients to its ``jax.vjp``.
@@ -104,7 +108,7 @@ def _full_walk(starts, ends, _n_contrib, _B, _H, _W):
     """``walked_slots`` with every slot walked: the tile ranges cover the
     slots in order, so each record row is its slot (the full layout)."""
     assert int(starts[0]) == 0 and torch.equal(starts[1:], ends[:-1])
-    return torch.cat([starts, ends[-1:]]), int(ends[-1])
+    return torch.cat([starts, ends[-1:]]), ends[-1]
 
 
 def _walked_numpy(starts, ends, nc, B, H, W):
@@ -127,7 +131,8 @@ def _walked_numpy(starts, ends, nc, B, H, W):
 def test_compact_records_reduce_as_full_layout(name):
     """The five gradients reduced from the compacted plain records and from
     the full layout (every slot a row, zeros past the walks) are bitwise
-    equal; the rows are the tiles' walked prefixes in order."""
+    equal; the rows are the tiles' walked prefixes in order, at the
+    static slot capacity, the rows past them zero with the sentinel id."""
     t, h, w = _scene(name)
     _c, _d, keys, inputs, state = ttb._forward(*t, h, w, KCAP, None)
     B = inputs[6]
@@ -137,22 +142,27 @@ def test_compact_records_reduce_as_full_layout(name):
                                             *inputs[6:])
     S = keys.slot_face.numel()
     starts, ends = keys.starts, keys.ends
+    n_live = int(ends[-1])
     walked = _walked_numpy(starts, ends, state[2], B, h, w)
-    assert rec.shape == (int(walked.sum()), 4, ttb.REC_COLS)
+    wk = int(walked.sum())
+    assert S == KCAP and rec.shape == (S, 4, ttb.REC_COLS)
     assert slot_ids.dtype == torch.int32
-    assert slot_ids.tolist() == [int(starts[i]) + p for i in range(len(walked))
-                                 for p in range(walked[i])]
+    assert slot_ids[:wk].tolist() == [int(starts[i]) + p
+                                      for i in range(len(walked))
+                                      for p in range(walked[i])]
+    assert bool((slot_ids[wk:] == S).all()) and not bool(rec[wk:].any())
     assert bool(rec.any())
     if name == "empty_tiles":
         assert int((ends == starts).sum()) > len(walked) // 2
     if name == "whole_stack":
-        assert rec.shape[0] == S == int((ends - starts).sum())
+        assert wk == n_live == int((ends - starts).sum())
     if name == "opaque_stack":
-        assert rec.shape[0] * 4 == S
+        assert wk * 4 == n_live
 
     # the full layout: each compacted row at its slot, zeros elsewhere
+    # (the slots past the live ones hold the sentinel face row)
     full = torch.zeros((S, 4, ttb.REC_COLS))
-    full[slot_ids.long()] = rec
+    full[slot_ids[:wk].long()] = rec[:wk]
     all_ids = torch.arange(S, dtype=torch.int32)
 
     args = (keys.slot_face, keys.sigma, inputs[3], t[1], t[9], t[0].shape[0])
@@ -168,28 +178,35 @@ def test_walked_slots(name, monkeypatch):
     """The prefix sums of the walked counts against a loop over the tiles;
     the wrapper on the CPU returns its plain version's two outputs; with
     every slot walked, the plain version writes the full layout: each
-    compacted row at its slot and zeros at the slots past the walks."""
+    compacted row at its slot and zeros at the slots past the walks. The
+    total stays a tensor (no host read) and the records and slot ids have
+    the static slot capacity."""
     t, h, w = _scene(name)
     _c, _d, keys, inputs, state = ttb._forward(*t, h, w, KCAP, None)
     B = inputs[6]
     offs, total = ttb.walked_slots(keys.starts, keys.ends, state[2], B, h, w)
     walked = _walked_numpy(keys.starts, keys.ends, state[2], B, h, w)
-    assert offs.dtype == torch.int32 and isinstance(total, int)
+    assert offs.dtype == torch.int32 and isinstance(total, torch.Tensor)
+    assert total.ndim == 0
     assert offs.tolist() == [0, *np.cumsum(walked).tolist()]
-    assert total == int(walked.sum())
+    assert int(total) == int(walked.sum())
+    wk = int(total)
     gin = torch.ones((B, 5, h, w))
     rec, ids = ttb.bwd_composite(*inputs[:6], *state, gin, *inputs[6:])
-    assert rec.shape == (total, 4, ttb.REC_COLS) and ids.shape == (total,)
     S = keys.slot_face.numel()
+    assert rec.shape == (S, 4, ttb.REC_COLS) and ids.shape == (S,)
+    n_live = int(keys.ends[-1])
     with monkeypatch.context() as m:
         m.setattr(ttb, "walked_slots", _full_walk)
         full, all_ids = ttb.bwd_composite_plain(*inputs[:6], *state, gin,
                                                 *inputs[6:])
     assert full.shape == (S, 4, ttb.REC_COLS)
-    assert torch.equal(all_ids, torch.arange(S, dtype=torch.int32))
-    assert torch.equal(full[ids.long()], rec)
+    assert torch.equal(all_ids[:n_live],
+                       torch.arange(n_live, dtype=torch.int32))
+    assert bool((all_ids[n_live:] == S).all())
+    assert torch.equal(full[ids[:wk].long()], rec[:wk])
     rest = torch.ones(S, dtype=torch.bool)
-    rest[ids.long()] = False
+    rest[ids[:wk].long()] = False
     assert not bool(full[rest].any())
 
 
