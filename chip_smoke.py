@@ -100,8 +100,10 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
     just after (K3, K4 and K5 once each, ``seg_sum`` twice); run it twice
     (bitwise equal), time it and split it; then time the tet forward
     without gradients again (no K5);
-17. ``models.dmesh.make_tet_train_step`` with Adam(1e-2) at the tet
-    headline (zero target and background), 5 steps: the loss falls;
+17. ``models.dmesh.make_tet_train_step`` with Adam(1e-2, capturable=True)
+    at the tet headline (zero target and background), 5 steps (the first
+    eager, the second captured as two CUDA graphs and replayed, three
+    replays): the loss falls;
 18. the tet backward's edge cases: the card's gradients against the port's
     on the CPU at the small tet scene, zero gradients of empty geometry,
     and B=2 at the headline grid with gradients;
@@ -173,7 +175,22 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
     the warm-ups), ``make_train_loop`` ms per step at 20 steps, host syncs
     (eager at most 1, captured 0), device events, busy share, peak memory,
     and the binning's (key sort) and record CSR's device times;
-29. print one JSON line of per-kernel numbers, and as the last line
+29. the tet frame and train step as CUDA graphs at the tet headline and
+    the tet small scene (ray seed 17): 5 captured steps (G1 zero_grad,
+    forward and backward, the record flag read, G2 the optimiser step) and
+    a 5-step ``make_tet_train_loop`` bitwise equal to 5 eager steps
+    (capturable Adam), gradients too; a serving frame captured by
+    ``torch.cuda.graph`` bitwise equal to the eager one; the launch counts
+    of one capture (set to 0 just before: K3, K4, K5 once, ``seg_sum``
+    twice) and the replays; at the small scene a record capacity of one
+    record a ray, under which every replayed G1 flags the overflow and the
+    step takes the exact fallback, bitwise the eager steps; then
+    ``tools.tet_step_ms`` at the headline: eager and captured ms per
+    serving frame and train step, ``make_tet_train_loop`` ms per step at
+    20 steps, host syncs (eager at most 1, a captured frame 0, a captured
+    step exactly 1), device events, busy share, peak memory, and the bbox
+    emission's, record CSR's and record reduce's device times;
+30. print one JSON line of per-kernel numbers, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -363,12 +380,16 @@ def time_seg_sum(x, csr, label):
     bound (each value, row id and offset read once, each sum written
     once), one ``torch.segment_reduce`` call on rows already in CSR order,
     and ``index_select`` + ``segment_reduce``, which start from the same
-    inputs as seg_sum. Returns a dict of the numbers."""
+    inputs as seg_sum (the rows in segments: a static buffer's rows past
+    them are left out, as seg_sum leaves them). Returns a dict of the
+    numbers."""
     from dmesh_renderer_tpu_torch.ops import reduce as rd
 
     N, C = x.shape
     n_seg = csr.offsets.numel() - 1
-    data = x.index_select(0, csr.order)
+    rows = int(csr.offsets[-1])  # the rows in segments: what seg_sum reads
+    live = csr.order[:rows]
+    data = x.index_select(0, live)
     lib = torch.segment_reduce(data, "sum", offsets=csr.offsets)
     check(rel(lib, rd.seg_sum(x, csr)) <= 1e-5,
           f"segment_reduce disagrees with seg_sum at the {label}")
@@ -376,14 +397,15 @@ def time_seg_sum(x, csr, label):
     lib_ms = cuda_ms(
         lambda: torch.segment_reduce(data, "sum", offsets=csr.offsets), 2, 10)
     gather_ms = cuda_ms(lambda: torch.segment_reduce(
-        x.index_select(0, csr.order), "sum", offsets=csr.offsets), 2, 10)
+        x.index_select(0, live), "sum", offsets=csr.offsets), 2, 10)
     dev_ms = profiled_device_ms(lambda: rd.seg_sum(x, csr), "seg_sum")
     plain_ms = cuda_ms(lambda: rd.seg_sum_plain(x, csr), 0, 1)
     b_ms, b_by, _o, _b = bound(
-        N * C, N * C * 4 + N * csr.order.element_size()
+        rows * C, rows * C * 4 + rows * csr.order.element_size()
         + csr.offsets.numel() * 8 + n_seg * C * 4)
     seg = seg_lengths(csr)
-    log(f"seg_sum at the {label} ({N} x {C} -> {n_seg} x {C}; segment "
+    log(f"seg_sum at the {label} ({N} x {C}, {rows} rows in segments -> "
+        f"{n_seg} x {C}; segment "
         f"lengths mean {seg['mean']:.2f}, p99 {seg['p99']:.0f}, max "
         f"{seg['max']}, empty {seg['empty']}): {ms:.4f} ms (device "
         f"{dev_ms:.4f}; plain {plain_ms:.2f}); "
@@ -394,7 +416,7 @@ def time_seg_sum(x, csr, label):
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": lib_ms, "library_gather_ms": gather_ms,
-            "shape": [N, C, n_seg], "segments": seg}
+            "shape": [N, C, n_seg], "rows": rows, "segments": seg}
 
 
 def lane_occupancy(n):
@@ -1228,8 +1250,9 @@ def k5_inputs(fargs, h, w, seed, gc, gd):
     from dmesh_renderer_tpu_torch.ops import tet as pt
 
     _c, _d, _a, saved = pt.render_tet_forward(*fargs, h, w, seed)
-    ray_i, ray_f, off, n = pt.bwd_start_state(saved, fargs[10], gc, gd,
-                                              fargs[12])
+    ray_i, ray_f, off, n, _total, ovf = pt.bwd_start_state(
+        saved, fargs[10], gc, gd, fargs[12])
+    check(not bool(ovf), "K5's records passed the static record capacity")
     m = saved["march"]
     return saved, (saved["ray_d"], saved["cam_o"], saved["zw"], ray_i,
                    ray_f, off, n, m["tet_geo"], m["tet_nrm"], m["tet_ids"],
@@ -1252,9 +1275,15 @@ def compare_k5(fargs, h, w, seed, label, gen_seed):
     check(pt.bwd_march.launches == before + 1, "K5 did not launch")
     want = pt.bwd_march_plain(*inputs)
     check(bool(want[1].any()), f"{label}: K5 records all zero")
-    for name, g, p in zip(("keys", "records", "mismatch flags"), got, want):
+    # the records on the rows the rays own: the card leaves the record
+    # capacity's rows past them unwritten (their key F keeps them out of the
+    # reduce)
+    live = int(inputs[3][3].long().sum())
+    for name, g, p in zip(("keys", "records", "mismatch flags"),
+                          (got[0], got[1][:live], got[2]),
+                          (want[0], want[1][:live], want[2])):
         check(torch.equal(g, p), f"{label}: K5 {name} differ from plain")
-    err = float((got[1] - want[1]).abs().max())
+    err = float((got[1][:live] - want[1][:live]).abs().max())
     F, P = fargs[1].shape[0], fargs[0].shape[0]
     gk = pt.reduce_tet_records(*got[:2], fargs[1], P)
     gp = pt.reduce_tet_records(*want[:2], fargs[1], P)
@@ -1262,7 +1291,8 @@ def compare_k5(fargs, h, w, seed, label, gen_seed):
         err = max(err, float((g - p).abs().max()))
         check(torch.equal(g, p), f"{label}: K5 gradients differ from plain")
     mism = int(got[2].sum())
-    log(f"K5 vs plain [{label}]: {inputs[6]} records over "
+    log(f"K5 vs plain [{label}]: {int(inputs[3][3].long().sum())} records "
+        f"(capacity {inputs[6]}) over "
         f"{int((inputs[3][3] > 0).sum())} rays; keys, records, mismatch "
         f"flags and both gradients bit-equal (max abs err {err:.3g}); "
         f"re-walk mismatches {mism}; faces {F}")
@@ -1297,8 +1327,8 @@ def tet_train_phases(dev, head):
     # ---- seg_sum against plain at the tet reduce's two shapes
     F, P = fargs[1].shape[0], fargs[0].shape[0]
     keys, rec = k5_out[0], k5_out[1]
-    csr = rd.segment_csr(keys, F + 1)
-    face_acc = rd.seg_sum(rec, csr)[:F]
+    csr = rd.segment_csr(keys, F)  # the rows of key F lie past it
+    face_acc = rd.seg_sum(rec, csr)
     corners = face_acc[:, :9].reshape(F * 3, 3)
     csr_v = rd.segment_csr(fargs[1], P)
     ss_err = 0.0
@@ -1318,7 +1348,7 @@ def tet_train_phases(dev, head):
 
     # ---- K5's bound on this run's data
     ray_i = k5_in[3]
-    n_rec = k5_in[6]
+    n_rec = int(ray_i[3].long().sum())  # the records, not the capacity
     n_rays = int((ray_i[3] > 0).sum())
     # every ray but its last record walks back one step (all rays retrace
     # the forward when the mismatch count is 0)
@@ -1402,14 +1432,14 @@ def tet_train_phases(dev, head):
             torch.ones((1, 1, H, W), device=dev))
     saved, in1 = k5_inputs(fargs, H, W, 0, *ones)
     keys1, rec1, _bad1 = pt.bwd_march(*in1)
-    acc1 = rd.seg_sum(rec1, rd.segment_csr(keys1, F + 1))[:F]
+    acc1 = rd.seg_sum(rec1, rd.segment_csr(keys1, F))
     fb_split = {
         "recording forward": cuda_ms(fwd, 2, 10),
         "start state": cuda_ms(lambda: pt.bwd_start_state(
             saved, fargs[10], *ones, fargs[12]), 2, 10),
         "K5": cuda_ms(lambda: pt.bwd_march(*in1), 2, 10),
         "record reduce": cuda_ms(lambda: rd.seg_sum(
-            rec1, rd.segment_csr(keys1, F + 1)), 2, 10),
+            rec1, rd.segment_csr(keys1, F)), 2, 10),
         "vertex reduce": cuda_ms(lambda: rd.corner_sum(
             fargs[1], P, acc1[:, :9].reshape(F * 3, 3)), 2, 10),
     }
@@ -1428,15 +1458,14 @@ def tet_train_phases(dev, head):
         + f"; the tet forward without gradients, timed next: "
           f"{fwd_nograd_ms:.3f} ms (K3 and K4 once, no K5)")
 
-    # ---- make_tet_train_step with Adam(1e-2) at the headline
+    # ---- make_tet_train_step with Adam(1e-2, capturable) at the headline
     geom = dmesh.TetGeometry(fargs[0], fargs[1], fargs[9], fargs[10],
                              fargs[11])
     scene = dmesh.TetScene(*[user[i].detach().clone().requires_grad_(True)
                              for i in (2, 3)])
     batch = dmesh.TetViewBatch(*fargs[4:9], torch.zeros((1, 3, H, W),
                                                         device=dev))
-    state = dmesh.init_tet_train_state(
-        scene, lambda p: torch.optim.Adam(p, lr=1e-2))
+    state = dmesh.init_tet_train_state(scene, _adam_capturable)
     step = dmesh.make_tet_train_step(geom, torch.zeros(3, device=dev), H, W)
     losses, step_times = [], []
     for _ in range(5):
@@ -1450,10 +1479,15 @@ def tet_train_phases(dev, head):
         losses.append(float(loss))
     check(all(np.isfinite(x) for x in losses), f"tet train losses {losses}")
     check(losses[-1] < losses[0], f"tet train loss did not fall: {losses}")
-    step_ms = float(np.mean(step_times[1:]))
-    log(f"tet train step (Adam 1e-2, zero target and background): losses "
-        + ", ".join(f"{x:.6f}" for x in losses) + f"; {step_ms:.3f} ms/step "
-        f"(mean of steps 2-5; step 1 {step_times[0]:.3f} ms)")
+    check((step.captures, step.replays) == (1, 4),
+          f"tet train step: {step.captures} captures, {step.replays} "
+          "replays")
+    step_ms = float(np.mean(step_times[2:]))
+    log(f"tet train step (Adam 1e-2, capturable; zero target and "
+        f"background): losses " + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; {step_ms:.3f} ms/step (mean of steps 3-5, replays; step 1 "
+        f"eager {step_times[0]:.3f} ms, step 2 the capture and a replay "
+        f"{step_times[1]:.3f} ms)")
 
     # ---- the tet backward's edge cases on the card
     fs = head["small"]
@@ -2082,9 +2116,10 @@ def mv_problem(kind, cfg, dev):
         batch = dmesh.TetViewBatch(*fargs[4:9], target)
         geom = dmesh.TetGeometry(fargs[0], fargs[1], *fargs[9:12])
 
-        def make_step(mesh, capture=True):  # the tet step is eager
+        def make_step(mesh, capture=True):
             return dmesh.make_tet_train_step(geom, zeros, H, W, mesh=mesh,
-                                             seed=c["ray_seed"])
+                                             seed=c["ray_seed"],
+                                             capture=capture)
 
     scene_type = dmesh.TriScene if kind == "tri" else dmesh.TetScene
 
@@ -2458,8 +2493,8 @@ def checkpoint_phases(dev):
         for kind in ("tri", "tet"):
             fresh, make_step, batch = mv_problem(kind, cfg, dev)
             step = make_step(None)
-            # the tri step is captured on the card: a capturable optimiser
-            adam = _adam_capturable if kind == "tri" else _adam
+            # both steps are captured on the card: a capturable optimiser
+            adam = _adam_capturable
             st, want = fresh(adam), []
             for _ in range(4):
                 st, loss = step(st, batch)
@@ -2621,6 +2656,151 @@ def step_capture_phases(dev):
             f"{x['device_events']} device events, busy {x['busy_ms']:.3f} ms "
             f"(share {x['busy_share']:.3f}), peak {x['peak_mib']:.1f} MiB")
     log(f"  make_train_loop: {m['loop_ms_per_step']:.3f} ms per step at "
+        f"{m['loop_steps']} steps; stages {m['stages']}")
+    return out
+
+
+TET_GRAPH_KERNELS = ("tet_first_hit", "tet_fwd_march", "tet_bwd_march",
+                     "seg_sum")
+
+
+def tet_capture_phases(dev):
+    """Phase 29: the tet frame and the tet train step as CUDA graphs, at
+    the tet headline and the tet small scene, a forced record overflow
+    under capture at the small scene, then ``tools.tet_step_ms`` at the
+    headline (module docstring). Returns the numbers."""
+    import dmesh_renderer_tpu_torch as port
+    from dmesh_renderer_tpu_torch.models import dmesh
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+    from dmesh_renderer_tpu_torch.tools import tet_step_ms
+
+    counters = launch_counters()
+    n_s, jit_s, gs_s, b_s, h_s, w_s, seed_s = TET_SMALL
+    cases = (("headline", (TET_HEADLINE["n_grid"], 1, 0.15, 2),
+              TET_HEADLINE["height"], TET_HEADLINE["width"], 0),
+             ("small", (n_s, b_s, jit_s, gs_s), h_s, w_s, seed_s))
+    out = {}
+    for label, scene_args, H, W, seed in cases:
+        user, fargs, bg = tet_user(*scene_args, dev)
+        B = fargs[4].shape[0]
+        zeros = torch.zeros(3, device=dev)
+        geom = dmesh.TetGeometry(fargs[0], fargs[1], *fargs[9:12])
+        batch = dmesh.TetViewBatch(*fargs[4:9],
+                                   torch.zeros((B, 3, H, W), device=dev))
+
+        def fresh():
+            scene = dmesh.TetScene(*(fargs[i].detach().clone()
+                                     .requires_grad_(True) for i in (2, 3)))
+            return dmesh.init_tet_train_state(scene, _adam_capturable)
+
+        def steps(n, **kw):
+            """n steps; the launch counts of step 2, the capture (set to
+            0 just before it)."""
+            step = dmesh.make_tet_train_step(geom, zeros, H, W, seed=seed,
+                                             **kw)
+            st, losses, grads = fresh(), [], []
+            for i in range(n):
+                if i == 1:
+                    for w in counters.values():
+                        w.launches = 0
+                st, loss = step(st, batch)
+                if i == 1:
+                    sync(dev)
+                    launched = {k: counters[k].launches
+                                for k in TET_GRAPH_KERNELS}
+                losses.append(loss)
+                grads.append([p.grad.clone() for p in st.scene])
+            return step, st, losses, grads, launched
+
+        _e, se, want, want_g, _l = steps(5, capture=False)
+        graphed, sg, got, got_g, captured = steps(5)
+        loop = dmesh.make_tet_train_loop(geom, zeros, H, W, 5, seed=seed)
+        sl, losses = loop(fresh(), batch)
+        sync(dev)
+        check(all(torch.equal(a, b) for a, b in zip(want, got))
+              and all(torch.equal(a, b) for x, y in zip(want_g, got_g)
+                      for a, b in zip(x, y))
+              and digest(sg.scene) == digest(se.scene),
+              f"tet {label}: the captured steps differ from eager ones")
+        check(torch.equal(losses, torch.stack(want))
+              and digest(sl.scene) == digest(se.scene),
+              f"tet {label}: the captured loop differs from eager steps")
+        check((graphed.captures, graphed.replays, graphed.fallbacks)
+              == (1, 4, 0) and (loop.step.captures, loop.step.replays)
+              == (1, 4), f"tet {label}: captures, replays and fallbacks")
+        check(all(captured[k] == 1 for k in TET_GRAPH_KERNELS[:3])
+              and captured["seg_sum"] == 2,
+              f"tet {label}: the capture's launches {captured}")
+        check(float(want[-1]) < float(want[0]),
+              f"tet {label}: the loss did not fall: {want}")
+        r = port.TetRenderer(port.TetRenderSettings(H, W, bg), "cuda")
+        frame = r(*user, return_aux=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            frame_g = r(*user, return_aux=True)
+        graph.replay()
+        sync(dev)
+        check(all(torch.equal(a, b) for a, b in zip(
+            (*frame[:3], *frame[3]), (*frame_g[:3], *frame_g[3]))),
+            f"tet {label}: the captured serving frame differs from the "
+            "eager one")
+        out[label] = {"losses": [float(x) for x in want],
+                      "launches_per_capture": captured,
+                      "replays": graphed.replays + loop.step.replays,
+                      "record_capacity": pt.record_capacity(B, H, W, 512)}
+        log(f"tet step capture [{label}]: 5 captured steps (G1, one flag "
+            f"read, G2) and a 5-step loop bitwise equal to 5 eager steps "
+            f"(capturable Adam, ray seed {seed}), losses "
+            f"{out[label]['losses']}; one capture launched {captured} "
+            f"through the wrappers, replayed {out[label]['replays']} times; "
+            f"the captured serving frame bitwise equal to the eager one")
+        del graphed, loop, graph, frame_g, sg, sl
+        if label == "small":
+            # the record capacity at one record a ray: every replayed G1
+            # flags an overflow and the step takes the exact fallback
+            saved_cap = pt.LOG_CAP
+            pt.LOG_CAP = 1
+            try:
+                _e, se1, want1, _g, _l = steps(4, capture=False)
+                forced, sf, got1, _g, _l = steps(4)
+                sync(dev)
+            finally:
+                pt.LOG_CAP = saved_cap
+            check(all(torch.equal(a, b) for a, b in zip(want1, want[:4]))
+                  and all(torch.equal(a, b) for a, b in zip(got1, want1))
+                  and digest(sf.scene) == digest(se1.scene),
+                  "tet small: a forced record overflow under capture "
+                  "differs from the eager steps")
+            check((forced.captures, forced.replays, forced.fallbacks)
+                  == (1, 0, 3), "tet small: the forced overflow's "
+                  f"fallbacks {forced.fallbacks}")
+            out["forced_overflow_fallbacks"] = forced.fallbacks
+            log("tet small, record capacity at one record a ray: 4 steps, "
+                "3 of them replays of G1 that flagged the overflow and took "
+                "the exact fallback, bitwise equal to eager steps at the "
+                "full capacity")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m = tet_step_ms.run(str(Path(__file__).resolve().parent), 20, 20,
+                        TET_HEADLINE["n_grid"], TET_HEADLINE["height"])
+    for k in ("serve_eager", "step_eager"):
+        check(m[k]["host_syncs"] <= 1,
+              f"tet {k}: {m[k]['host_syncs']} host syncs, at most 1")
+    check(m["serve_captured"]["host_syncs"] == 0,
+          f"tet serve_captured: {m['serve_captured']['host_syncs']} host "
+          "syncs under replay")
+    check(m["step_captured"]["host_syncs"] == 1,
+          f"tet step_captured: {m['step_captured']['host_syncs']} host "
+          "syncs, not the one flag read")
+    out["tet_step_ms"] = m
+    log(f"tools.tet_step_ms at the tet headline "
+        f"({time.perf_counter() - t0:.1f} s): {json.dumps(m)}")
+    for k in ("serve_eager", "serve_captured", "step_eager", "step_captured"):
+        x = m[k]
+        log(f"  {k}: {x['ms']:.3f} ms, {x['host_syncs']} host syncs, "
+            f"{x['device_events']} device events, busy {x['busy_ms']:.3f} ms "
+            f"(share {x['busy_share']:.3f}), peak {x['peak_mib']:.1f} MiB")
+    log(f"  make_tet_train_loop: {m['loop_ms_per_step']:.3f} ms per step at "
         f"{m['loop_steps']} steps; stages {m['stages']}")
     return out
 
@@ -3035,10 +3215,20 @@ def main() -> int:
     graph_launches = {k: {"per_capture": graphs["headline"][
         "launches_per_capture"][k], "replays": graphs["headline"]["replays"]}
         for k in TRI_GRAPH_KERNELS}
+    t_new = time.perf_counter()
+    tet_graphs = tet_capture_phases(dev)
+    log(f"phase 29 (tet step capture) took "
+        f"{time.perf_counter() - t_new:.1f} s; the script "
+        f"{time.perf_counter() - t_main:.1f} s until here")
+    tet_graph_launches = {k: {"per_capture": tet_graphs["headline"][
+        "launches_per_capture"][k], "replays": tet_graphs["headline"][
+        "replays"]} for k in TET_GRAPH_KERNELS}
     sharded = {k: v for kind in ("tri", "tet")
                for k, v in multi_view[kind]["launches_per_rank_step"].items()}
     for entry in (*tet_kernels, k5_entry):
         entry["launches_sharded_per_rank_step"] = sharded[entry["name"]]
+        entry["launches_captured_tet_step"] = tet_graph_launches[
+            entry["name"]]
 
     common = {"route": "cuda"}
     log(json.dumps({"kernels": [
@@ -3081,6 +3271,7 @@ def main() -> int:
          "launches": launches["seg_sum"],
          "launches_tet_train": tet_train_info["tet_seg_sum_launches"],
          "launches_captured_step": graph_launches["seg_sum"],
+         "launches_captured_tet_step": tet_graph_launches["seg_sum"],
          "launches_sharded_per_rank_step": {
              k: multi_view[k]["seg_sum_per_rank_step"]
              for k in ("tri", "tet")},
@@ -3102,6 +3293,7 @@ def main() -> int:
         "diagnostics": diag, "launch_path_split_us": split_us,
         "multi_view": multi_view, "checkpoint": ckpt, "examples": examples,
         "fuzz": fuzz, "dispatch_ladder": ladder, "step_capture": graphs,
+        "tet_step_capture": tet_graphs,
         "experiments": {k: _jsonable(v) for k, v in answers.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

@@ -183,8 +183,9 @@ def render_tet(verts, faces, verts_color, faces_opacity, mv_mats, proj_mats,
             B, H, W, a["bg"], a["verts"], a["verts_color"],
             a["faces_opacity"], mv_t, proj_t, a["faces_intense"])
         if return_aux:
-            return color, depth, active, (torch.tensor(False, device=dev),
-                                          torch.tensor(0, device=dev))
+            return color, depth, active, (
+                torch.zeros((), dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
         return color, depth, active
 
     kcap = render_settings.key_capacity

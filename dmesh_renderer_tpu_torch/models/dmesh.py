@@ -14,22 +14,28 @@ the port keeps a ``torch.optim`` optimiser over the scene's leaf tensors in
 it from a factory (``params -> optimizer``), and the step and the loop use
 it.
 
-On the card, the tri train step and loop are what the JAX package's
-``jax.jit(step)`` and ``jax.jit(lax.scan(...))`` are: programs that run
-with no host work per op. The binned tri frame has static shapes and reads
-nothing on the host under capture (``ops/tri_binned.py``), so ``TrainStep``
-runs the first call for a batch shape as an ordinary eager step (which also
-builds every lazily made table and the optimiser's state), captures the
-second -- zero_grad, forward, backward, ``opt.step()`` -- into a
-``torch.cuda.CUDAGraph`` on a side stream and replays it, and replays it on
-every later call, after copying the batch into the graph's static inputs.
-The optimiser must be capturable (``torch.optim.Adam(...,
+On the card, the train steps and loops of both renderers are what the JAX
+package's ``jax.jit(step)`` and ``jax.jit(lax.scan(...))`` are: programs
+that run with no host work per op. The binned tri frame and the tet frame
+have static shapes and read nothing on the host under capture
+(``ops/tri_binned.py``, ``ops/tet.py``), so a step (``_CapturedStep``)
+runs the first call for a batch shape as an ordinary eager step (which
+also builds every lazily made table and the optimiser's state), captures
+the second into CUDA graphs on a side stream and replays them, and replays
+them on every later call, after copying the batch into the graphs' static
+inputs. The tri step (``TrainStep``) is one graph: zero_grad, forward,
+backward, ``opt.step()``. The tet step (``TetTrainStep``) is two, G1
+(zero_grad, forward, backward) and G2 (``opt.step()``), with one read
+between them: the backward's record overflow flag, set where K5's records
+passed their static capacity (which the JAX package never drops, and
+neither does an eager step); a flagged step drops G1's gradients and is
+taken eagerly. The optimiser must be capturable (``torch.optim.Adam(...,
 capturable=True)``); a step whose optimiser is not raises on the card. A
-batch of other shapes captures a graph of its own, as ``jit`` retraces; an
+batch of other shapes captures graphs of its own, as ``jit`` retraces; an
 optimiser whose state tensors were replaced (``opt.load_state_dict``, a
 checkpoint restore) or a new optimiser takes an eager step and captures
 again. ``mesh=`` steps (their all-reduce goes through the host), the dense
-oracle, and the CPU stay eager.
+tri oracle, and the CPU stay eager.
 
 Multi-view training (``mesh=``, a ``parallel.make_view_mesh`` mesh): each
 rank renders its own views (``parallel.shard_view_batch``) with its own copy
@@ -46,6 +52,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..ops import tet as tet_ops
 from ..ops.tet import render_tet_core
 from ..ops.binning import default_key_capacity, warn_if_overflow
 from ..ops.tri import render_tri_auto, tri_strategy
@@ -137,11 +144,11 @@ def init_train_state(
     return TrainState(scene, None, optimizer(list(scene)))
 
 
-def _require_capturable(opt: torch.optim.Optimizer) -> None:
+def _require_capturable(opt: torch.optim.Optimizer, builder: str) -> None:
     if not all(g.get("capturable", False) for g in opt.param_groups):
         raise RuntimeError(
-            "make_train_step: on the card the tri train step is captured as "
-            "a CUDA graph, which needs a capturable optimiser (e.g. "
+            f"{builder}: on the card the train step is captured as CUDA "
+            "graphs, which needs a capturable optimiser (e.g. "
             "torch.optim.Adam(params, capturable=True)); this "
             f"{type(opt).__name__} is not. Pass capture=False to keep every "
             "step eager.")
@@ -166,53 +173,62 @@ def _fingerprint(state: TrainState) -> tuple:
 
 class _Graph(NamedTuple):
     """One captured train step and its static tensors."""
-    graph: Any              # torch.cuda.CUDAGraph
+    graphs: tuple           # torch.cuda.CUDAGraph: the step, or G1 and G2
     fingerprint: tuple      # ``_fingerprint`` of the state it was taken on
-    batch: ViewBatch        # the static inputs each call copies into
+    batch: Any              # the static inputs each call copies into
     loss: torch.Tensor      # [] the step's loss, rewritten by each replay
     aux: tuple              # (overflow bool[], num_rendered int64[])
+    flag: Any               # G1's record overflow flag (split steps), or None
+    grads: tuple            # the gradients G1 writes and G2 reads
 
 
-class TrainStep:
-    """``step(state, batch) -> (state, loss)``: one render, the loss, its
-    five-gradient backward and one optimiser step on ``state.scene``;
-    ``loss`` is detached and holds no gradient buffer.
+class _CapturedStep:
+    """The capture machinery of both renderers' train steps (module
+    docstring): ``step(state, batch) -> (state, loss)``, one optimiser step
+    per call, so step n is the same step as JAX's step n; ``loss`` is
+    detached and holds no gradient buffer. ``captures``, ``replays`` and
+    ``fallbacks`` count the captures taken, the steps replayed and the
+    split steps redone eagerly. ``steps(state, batch, n)`` runs n steps
+    with the losses kept on the device and read once at the end.
 
-    On the card (``mesh=None``, the binned path, ``capture=True``) the
-    step is kept on the device as CUDA graphs (module docstring):
-    ``captures`` and ``replays`` count the graphs taken and replayed. Each
-    call is one optimiser step, so step n is the same step as JAX's step
-    n. ``steps(state, batch, n)`` runs n of them with no host read in
-    between (``make_train_loop``)."""
+    A subclass passes the host-given tensors (``consts``, moved to each
+    device once) and gives ``_grads`` (zero_grad, the forward, the backward
+    and the gradients' reduction over a mesh), ``_captured`` (whether a
+    step runs as graphs) and, for a split step, ``_flag`` (G1's overflow
+    flag)."""
 
-    def __init__(self, faces, bg, height: int, width: int, mesh=None,
-                 force: str | None = None, kcap: int | None = None,
-                 capture: bool = True):
+    builder = ""           # the public builder's name, for messages
+    split = False          # G1 (gradients) and G2 (``opt.step()``)
+    overflow_context = ""  # the overflow warning's context
+    avg_tiles = 16         # ``default_key_capacity``'s tiles per face
+    faces_at = 0           # the index of ``faces`` in the constants
+
+    def __init__(self, consts: tuple, height: int, width: int, mesh,
+                 kcap: int | None, capture: bool):
         _check_mesh(mesh)
-        self.faces, self.bg = faces, bg
         self.height, self.width = height, width
-        self.mesh, self.force, self.kcap = mesh, force, kcap
-        self.capture = capture
+        self.mesh, self.kcap, self.capture = mesh, kcap, capture
         self.captures = 0
         self.replays = 0
-        self._consts: dict = {}   # device -> (faces, bg) on it
+        self.fallbacks = 0
+        self._host_consts = consts
+        self._consts: dict = {}   # device -> consts on it
         self._streams: dict = {}  # device -> the side stream of captures
         self._warm: dict = {}     # shape key -> fingerprint after warm-up
         self._graphs: dict = {}   # shape key -> _Graph
 
-    def __call__(self, state: TrainState, batch: ViewBatch):
+    def __call__(self, state: TrainState, batch):
         loss, _aux, replayed = self._run(state, batch, warn=True)
         return state, loss.clone() if replayed else loss
 
-    def steps(self, state: TrainState, batch: ViewBatch,
-              n: int) -> torch.Tensor:
+    def steps(self, state: TrainState, batch, n: int) -> torch.Tensor:
         """``n`` steps on the same batch; returns the losses [n]. On the
         captured path the losses and the overflow flags are written into
         device tensors and read once at the end, which warns once if any
-        step overflowed."""
+        step overflowed (a split step also reads its one flag per step)."""
         if not self._captured(state, batch):
             return torch.stack([self(state, batch)[1] for _ in range(n)])
-        dev = state.scene.verts.device
+        dev = state.scene[0].device
         losses = torch.empty(n, dtype=torch.float32, device=dev)
         flags = torch.zeros(n, dtype=torch.bool, device=dev)
         totals = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -224,61 +240,35 @@ class TrainStep:
         kcap = self.kcap
         if kcap is None:
             kcap = default_key_capacity(batch.mv_t.shape[0],
-                                        self.faces.shape[0])
+                                        len(self._host_consts[
+                                            self.faces_at]),
+                                        self.avg_tiles)
         warn_if_overflow(flags.any(), totals[flags.int().argmax()], kcap,
-                         "render_tri_binned; raise "
-                         "TriRenderSettings.key_capacity")
+                         self.overflow_context)
         return losses
 
-    def _captured(self, state: TrainState, batch: ViewBatch) -> bool:
-        """Whether this step runs as a CUDA graph: on the card, without a
-        mesh, on the binned path."""
-        scene = state.scene
-        dev = scene.verts.device
-        return (self.capture and self.mesh is None and dev.type == "cuda"
-                and tri_strategy(scene.verts.shape[0], self.faces.shape[0],
-                                 dev, self.force) == "binned")
-
     def _constants(self, dev):
-        """``faces`` and ``bg`` on ``dev``, moved once (no host-to-device
+        """The host-given tensors on ``dev``, moved once (no host-to-device
         copy inside a captured step)."""
         c = self._consts.get(dev)
         if c is None:
-            c = self._consts[dev] = (torch.as_tensor(self.faces).to(dev),
-                                     torch.as_tensor(self.bg).to(dev))
+            c = self._consts[dev] = tuple(torch.as_tensor(x).to(dev)
+                                          for x in self._host_consts)
         return c
 
-    def _loss(self, scene: TriScene, batch: ViewBatch, warn: bool):
-        """The loss and, on the binned path, its (overflow, num_rendered)."""
-        faces, bg = self._constants(scene.verts.device)
-        binned = tri_strategy(scene.verts.shape[0], faces.shape[0],
-                              scene.verts.device, self.force) == "binned"
-        out = render_views(scene, faces, batch, bg, self.height, self.width,
-                           self.force, self.kcap, with_aux=binned,
-                           warn_overflow=warn)
-        loss = torch.mean((out[0] - batch.target) ** 2)
-        return loss, out[2] if binned else None
-
-    def _eager(self, state: TrainState, batch: ViewBatch, warn: bool):
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
-        loss, aux = self._loss(state.scene, batch, warn)
-        loss.backward()
-        loss = loss.detach()
-        if self.mesh is not None:
-            loss = _sum_over_views(self.mesh, list(state.scene), [loss],
-                                   lambda flat: self.mesh.size)
-        opt.step()
+    def _eager(self, state: TrainState, batch, warn: bool):
+        loss, aux = self._grads(state, batch, warn)
+        state.opt_state.step()
         return loss, aux
 
-    def _run(self, state: TrainState, batch: ViewBatch, warn: bool):
+    def _run(self, state: TrainState, batch, warn: bool):
         """One step: (loss, aux, replayed). After a replay the loss and
         the aux are the graph's static tensors, which the next replay
         rewrites."""
         if not self._captured(state, batch):
             return (*self._eager(state, batch, warn), False)
-        _require_capturable(state.opt_state)
-        dev = state.scene.verts.device
+        _require_capturable(state.opt_state, self.builder)
+        dev = state.scene[0].device
         key = tuple((tuple(t.shape), t.dtype, t.device)
                     for t in (*state.scene, *batch))
         fp = _fingerprint(state)
@@ -298,9 +288,26 @@ class TrainStep:
         for static, t in zip(g.batch, batch):
             if static is not t:
                 static.copy_(t)
-        g.graph.replay()
+        g.graphs[0].replay()
+        if g.flag is not None:
+            if bool(g.flag):  # the split step's one host read (1 byte)
+                return (*self._fallback(state, batch, g, warn), False)
+            g.graphs[1].replay()
         self.replays += 1
         return g.loss, g.aux, True
+
+    def _fallback(self, state: TrainState, batch, g: _Graph, warn: bool):
+        """G1 flagged an overflow: its gradients are dropped and the step is
+        taken eagerly (whose forward reads the totals and sizes what G1
+        could not hold); the gradients then go back into G1's buffers, which
+        G2 reads."""
+        self.fallbacks += 1
+        loss, aux = self._eager(state, batch, warn)
+        with torch.no_grad():
+            for p, static in zip(state.scene, g.grads):
+                static.copy_(p.grad)
+                p.grad = static
+        return loss, aux
 
     def _side_stream(self, dev):
         s = self._streams.get(dev)
@@ -308,17 +315,77 @@ class TrainStep:
             s = self._streams[dev] = torch.cuda.Stream(dev)
         return s
 
-    def _capture(self, state: TrainState, batch: ViewBatch, fp, dev):
-        """Capture one whole step (PyTorch's whole-network recipe): the
-        gradients are set to None first, so that the captured backward
-        allocates them in the graph's memory pool."""
-        static = ViewBatch(*(t.clone() for t in batch))
+    def _capture(self, state: TrainState, batch, fp, dev):
+        """Capture one step (PyTorch's whole-network recipe): the gradients
+        are set to None first, so that the captured backward allocates them
+        in the graph's memory pool. A split step captures G1 (zero_grad,
+        forward, backward) and then G2 (``opt.step()``, the optimiser's
+        capturable state updated in place) in the same pool."""
+        static = type(batch)(*(t.clone() for t in batch))
         state.opt_state.zero_grad(set_to_none=True)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self._side_stream(dev)):
-            loss, aux = self._eager(state, static, warn=False)
+        side = self._side_stream(dev)
+        g1 = torch.cuda.CUDAGraph()
+        flag, graphs = None, (g1,)
+        with torch.cuda.graph(g1, stream=side):
+            if self.split:
+                loss, aux = self._grads(state, static, warn=False)
+                flag = self._flag()
+            else:
+                loss, aux = self._eager(state, static, warn=False)
+        if self.split:
+            g2 = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g2, pool=g1.pool(), stream=side):
+                state.opt_state.step()
+            graphs = (g1, g2)
         self.captures += 1
-        return _Graph(graph, fp, static, loss, aux)
+        return _Graph(graphs, fp, static, loss, aux, flag,
+                      tuple(p.grad for p in state.scene))
+
+
+class TrainStep(_CapturedStep):
+    """The tri train step: one render, the loss, its five-gradient backward
+    and one optimiser step on ``state.scene`` (``_CapturedStep``). On the
+    card (``mesh=None``, the binned path, ``capture=True``) the whole step
+    is one CUDA graph (module docstring)."""
+
+    builder = "make_train_step"
+    overflow_context = ("render_tri_binned; raise "
+                        "TriRenderSettings.key_capacity")
+
+    def __init__(self, faces, bg, height: int, width: int, mesh=None,
+                 force: str | None = None, kcap: int | None = None,
+                 capture: bool = True):
+        super().__init__((faces, bg), height, width, mesh, kcap, capture)
+        self.force = force
+
+    def _captured(self, state: TrainState, batch: ViewBatch) -> bool:
+        """Whether this step runs as a CUDA graph: on the card, without a
+        mesh, on the binned path."""
+        scene = state.scene
+        dev = scene.verts.device
+        return (self.capture and self.mesh is None and dev.type == "cuda"
+                and tri_strategy(scene.verts.shape[0],
+                                 self._host_consts[0].shape[0], dev,
+                                 self.force) == "binned")
+
+    def _grads(self, state: TrainState, batch: ViewBatch, warn: bool):
+        """zero_grad, the loss and its backward: (loss, and on the binned
+        path its (overflow, num_rendered))."""
+        state.opt_state.zero_grad(set_to_none=True)
+        scene = state.scene
+        faces, bg = self._constants(scene.verts.device)
+        binned = tri_strategy(scene.verts.shape[0], faces.shape[0],
+                              scene.verts.device, self.force) == "binned"
+        out = render_views(scene, faces, batch, bg, self.height, self.width,
+                           self.force, self.kcap, with_aux=binned,
+                           warn_overflow=warn)
+        loss = torch.mean((out[0] - batch.target) ** 2)
+        loss.backward()
+        loss = loss.detach()
+        if self.mesh is not None:
+            loss = _sum_over_views(self.mesh, list(scene), [loss],
+                                   lambda flat: self.mesh.size)
+        return loss, out[2] if binned else None
 
 
 def make_train_step(faces, bg, height: int, width: int, mesh=None,
@@ -394,15 +461,19 @@ def make_tet_se_fn(geom: TetGeometry, bg, height: int, width: int,
     active pixels (inactive ones render pure background and are left out),
     and the number of values summed (3 per active pixel). ``view_offset``
     is the global index of the batch's view 0, which keys the per-view ray
-    jitter (``seed`` > 0) when the batch is one shard of more views."""
-    def se_fn(scene: TetScene, batch: TetViewBatch, view_offset=None):
-        color, _depth, active = render_tet_core(
+    jitter (``seed`` > 0) when the batch is one shard of more views.
+    ``with_aux=True`` also returns the first hit's (overflow,
+    num_rendered)."""
+    def se_fn(scene: TetScene, batch: TetViewBatch, view_offset=None,
+              with_aux: bool = False):
+        color, _depth, active, aux = render_tet_core(
             geom.verts, geom.faces, scene.verts_color, scene.faces_opacity,
             batch.mv_t, batch.proj_t, batch.inv_mv_t, batch.inv_proj_t,
             batch.faces_intense, geom.tets, geom.face_tets, geom.tet_faces,
-            bg, height, width, seed, view_offset=view_offset)
+            bg, height, width, seed, with_aux=True, view_offset=view_offset)
         m = active[:, None].to(torch.float32)
-        return torch.sum(m * (color - batch.target) ** 2), torch.sum(m) * 3.0
+        se = torch.sum(m * (color - batch.target) ** 2)
+        return (se, torch.sum(m) * 3.0) + ((aux,) if with_aux else ())
     return se_fn
 
 
@@ -414,47 +485,92 @@ def init_tet_train_state(
     return TrainState(scene, None, optimizer(list(scene)))
 
 
+class TetTrainStep(_CapturedStep):
+    """The tet train step: one render, the backward of the squared error,
+    the loss and the gradients divided by ``max(count, 1)`` and one
+    optimiser step (``make_tet_train_step``). On the card (``mesh=None``,
+    ``capture=True``) the step is two CUDA graphs, G1 (zero_grad, forward,
+    backward) and G2 (``opt.step()``), with the backward's record overflow
+    flag (``ops.tet.render_tet_backward.overflow``) read between them: a
+    set flag drops G1's gradients and takes the step eagerly, whose
+    backward holds every record (``fallbacks`` counts such steps)."""
+
+    builder = "make_tet_train_step"
+    split = True
+    overflow_context = tet_ops.FH_OVERFLOW_CONTEXT
+    avg_tiles = 5
+    faces_at = 1
+
+    def __init__(self, geom: TetGeometry, bg, height: int, width: int,
+                 mesh=None, seed: int = 0, capture: bool = True):
+        super().__init__((*geom, bg), height, width, mesh, None, capture)
+        self.seed = seed
+
+    def _captured(self, state: TrainState, batch: TetViewBatch) -> bool:
+        """Whether this step runs as CUDA graphs: on the card, without a
+        mesh."""
+        return (self.capture and self.mesh is None
+                and state.scene.verts_color.device.type == "cuda")
+
+    def _grads(self, state: TrainState, batch: TetViewBatch, warn: bool):
+        """zero_grad, the squared error's backward, and the loss and the
+        gradients divided by the (global) ``max(count, 1)``: (loss, the first
+        hit's (overflow, num_rendered)). The tet forward warns on its own
+        (``warn`` is unused)."""
+        opt = state.opt_state
+        opt.zero_grad(set_to_none=True)
+        *geom, bg = self._constants(state.scene.verts_color.device)
+        offset = (None if self.mesh is None
+                  else self.mesh.rank * batch.mv_t.shape[0])
+        se_fn = make_tet_se_fn(TetGeometry(*geom), bg, self.height,
+                               self.width, self.seed)
+        se, cnt, aux = se_fn(state.scene, batch, offset, with_aux=True)
+        se.backward()
+        loss = _sum_over_views(self.mesh, list(state.scene), [se, cnt],
+                               lambda flat: torch.clamp_min(flat[-1], 1.0))
+        return loss, aux
+
+    def _flag(self):
+        """The record overflow flag of the backward just run."""
+        return tet_ops.render_tet_backward.overflow
+
+
 def make_tet_train_step(geom: TetGeometry, bg, height: int, width: int,
-                        mesh=None, seed: int = 0):
+                        mesh=None, seed: int = 0,
+                        capture: bool = True) -> TetTrainStep:
     """``step(state, batch) -> (state, loss)``: one render, the backward
     of the squared error, the loss and the gradients divided by
     ``max(count, 1)`` (the masked mean squared error, as JAX's
     ``_tet_normalize`` does it), and one optimiser step on
     ``state.scene``. ``loss`` is detached.
 
+    On the card (``mesh=None``) the step is kept on the device as two CUDA
+    graphs from its second call on (``TetTrainStep``; the optimiser must be
+    capturable); ``capture=False`` keeps every step eager.
+
     With ``mesh``, ``batch`` is this rank's views, whose jitter (``seed`` >
     0) is keyed by their global view index; the squared error, the count
     and the gradients are summed over the ranks before the division by the
     global ``max(count, 1)`` (JAX's ``psum``): per-view active counts
     differ, so a mean of per-rank means would not be the global one."""
-    _check_mesh(mesh)
-    se_fn = make_tet_se_fn(geom, bg, height, width, seed)
-
-    def step(state: TrainState, batch: TetViewBatch):
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
-        offset = None if mesh is None else mesh.rank * batch.mv_t.shape[0]
-        se, cnt = se_fn(state.scene, batch, offset)
-        se.backward()
-        loss = _sum_over_views(mesh, list(state.scene), [se, cnt],
-                               lambda flat: torch.clamp_min(flat[-1], 1.0))
-        opt.step()
-        return state, loss
-
-    return step
+    return TetTrainStep(geom, bg, height, width, mesh=mesh, seed=seed,
+                        capture=capture)
 
 
 def make_tet_train_loop(geom: TetGeometry, bg, height: int, width: int,
-                        n_steps: int, mesh=None, seed: int = 0):
+                        n_steps: int, mesh=None, seed: int = 0,
+                        capture: bool = True):
     """``loop(state, batch) -> (state, losses [n_steps])``: ``n_steps``
-    tet train steps on the same batch."""
-    step = make_tet_train_step(geom, bg, height, width, mesh=mesh, seed=seed)
+    tet train steps on the same batch. On the card (``mesh=None``) the
+    steps replay the captured step's graphs with the losses kept on the
+    device and read once at the end (``TetTrainStep.steps``): the JAX
+    package's ``lax.scan`` loop. ``loop.step`` is the ``TetTrainStep`` it
+    runs."""
+    step = make_tet_train_step(geom, bg, height, width, mesh=mesh, seed=seed,
+                               capture=capture)
 
     def loop(state: TrainState, batch: TetViewBatch):
-        losses = []
-        for _ in range(n_steps):
-            state, loss = step(state, batch)
-            losses.append(loss)
-        return state, torch.stack(losses)
+        return state, step.steps(state, batch, n_steps)
 
+    loop.step = step
     return loop

@@ -5,30 +5,30 @@ A port of the JAX package's ``ops/binning.py``, written the plain GPU way
 
 1. per-view stable depth pre-sort of the faces (``torch.sort(stable=True)``
    over [B, F]) by mean depth, or by minimum depth for the tet first hit;
-2. exact emission (the tri path; the tet first hit emits every tile of
-   each face's bounding rect): each emitting face expands into (face, tile-row) runs
-   and each run into its covered tiles; a tile row
-   is kept only where the conservative corner test of
+2. emission at static sizes. The exact path (tri) expands each emitting
+   face into (face, tile-row) runs and each run into its covered tiles; a
+   tile row is kept only where the conservative corner test of
    ``_row_tile_interval`` passes, so only pairs that can cover a pixel are
-   emitted;
+   emitted. The bbox path (the tet first hit, and tri above
+   ``_EXACT_KCAP_MAX``) emits every tile of each face's bounding rect:
+   slot k of a face's rect is tile (rx + k % nx, ry + k // nx), row-major;
 3. one stable sort of the slots by int tile key (CUB radix sort on the
    card), which keeps the emission order -- depth-sorted face, tile row,
    tx -- inside every tile;
 4. tile ranges by ``searchsorted``.
 
-The exact path has the JAX package's static shapes: the run table holds
-``_run_capacity`` runs and the slot table ``kcap`` slots whatever the
-scene, each position finds its owner by ``searchsorted`` over the inclusive
-prefix sum of the counts, and the positions past the live count take the
-sentinel tile key ``B * n_tiles``, which sorts them last and out of every
-tile's range. No count is read on the host, so the path runs inside a CUDA
-graph capture. The bbox path (the tet first hit) still sizes its tables
-from counts read on the host.
+Both paths have the JAX package's static shapes: the slot table holds
+``kcap`` slots (and the exact path's run table ``_run_capacity`` runs)
+whatever the scene, each position finds its owner by ``searchsorted`` over
+the inclusive prefix sum of the counts (``owners``), and the positions past
+the live count take the sentinel tile key ``B * n_tiles``, which sorts them
+last and out of every tile's range. No count is read on the host, so both
+paths run inside a CUDA graph capture.
 
 The result is the same set and per-tile order of pairs as the JAX package,
-under the same capacity policy: at most ``kcap`` slots and ``run_cap`` runs
-are kept in emission order, so the farthest faces of the highest view lose
-their tiles first, and ``overflow`` is ``total > kcap`` or a run-table
+under the same capacity policy: at most ``kcap`` slots (and ``run_cap``
+runs) are kept in emission order, so the farthest faces of the highest view
+lose their tiles first, and ``overflow`` is ``total > kcap`` or a run-table
 overflow. The number of emitted pairs (``total``) is exact and independent
 of the capacity, as ``num_rendered`` of the JAX package.
 
@@ -60,10 +60,10 @@ class BinnedKeys(NamedTuple):
 
     ``slot_face`` holds indices into the per-view depth-sorted face order
     (view * F + rank); ``sigma`` maps that order back to original
-    view * F + face ids. On the exact path S = kcap and the live slots,
-    min(total, kcap) = ``ends[-1]`` of them, come first; the rest hold the
-    sentinel B * F and lie in no tile's range."""
-    slot_face: torch.Tensor  # [S] int32, S = kcap (bbox path: min(total, kcap))
+    view * F + face ids. The live slots, min(total, kcap) = ``ends[-1]`` of
+    them, come first; the rest hold the sentinel B * F and lie in no tile's
+    range."""
+    slot_face: torch.Tensor  # [kcap] int32
     sigma: torch.Tensor      # [B*F] int64
     starts: torch.Tensor     # [B * n_tiles] int32
     ends: torch.Tensor       # [B * n_tiles] int32
@@ -160,20 +160,13 @@ def _depth_presort(pre: dict, emit_counts: torch.Tensor,
     return (sigma_v + offs).reshape(-1)
 
 
-def _expand(counts: torch.Tensor, n_keep: int) -> torch.Tensor:
-    """Owner index of each of the first ``n_keep`` items when item i owns
-    ``counts[i]`` consecutive entries (the bbox path: one host read)."""
-    idx = torch.arange(counts.numel(), device=counts.device)
-    total = int(counts.sum())
-    return torch.repeat_interleave(idx, counts, output_size=total)[:n_keep]
-
-
 def owners(counts: torch.Tensor, n: int):
-    """``_expand``'s owners at a static size, with no host read: the owner
-    of each of ``n`` positions by ``searchsorted`` over the inclusive prefix
-    sum of ``counts``. Returns (owner [n], clamped to the last item past
-    the counts' total; live [n], the positions below the total; the
-    exclusive prefix sum of ``counts``; their total, a 0-d tensor)."""
+    """The owner of each of ``n`` positions when item i owns ``counts[i]``
+    consecutive ones, at a static size with no host read: ``searchsorted``
+    over the inclusive prefix sum of ``counts``. Returns (owner [n],
+    clamped to the last item past the counts' total; live [n], the
+    positions below the total; the exclusive prefix sum of ``counts``;
+    their total, a 0-d tensor)."""
     incl = torch.cumsum(counts, 0)
     pos = torch.arange(n, dtype=incl.dtype, device=counts.device)
     owner = torch.searchsorted(incl, pos, right=True)
@@ -216,32 +209,38 @@ def is_capturing(device: torch.device) -> bool:
 
 
 def warn_if_overflow(overflow: torch.Tensor, total: torch.Tensor, kcap: int,
-                     context: str) -> None:
-    """Read ``overflow`` and ``total`` in one transfer (the frame's one
-    host read) and warn (``overflow_warning``) if the flag is set. While
-    the stream captures a CUDA graph nothing is read: the flag stays data,
-    as the JAX package leaves it on a backend without host callbacks."""
+                     context: str, extra=()):
+    """Read ``overflow``, ``total`` and the 0-d integer tensors ``extra`` in
+    one transfer (the frame's one host read, ``host_read``), warn
+    (``overflow_warning``) if the flag is set, and return the values of
+    ``extra`` as ints. While the stream captures a CUDA graph nothing is
+    read and None is returned: the flag stays data, as the JAX package
+    leaves it on a backend without host callbacks."""
     if is_capturing(overflow.device):
-        return
-    flag, n = torch.stack([overflow.to(torch.int64),
-                           total.to(torch.int64)]).tolist()
+        return None
+    flag, n, *rest = host_read(overflow, total, *extra)
     if flag:
         overflow_warning(n, kcap, context)
+    return rest
+
+
+def host_read(*values: torch.Tensor) -> list:
+    """The 0-d tensors ``values`` as ints, in one device-to-host transfer."""
+    return torch.stack([v.to(torch.int64) for v in values]).tolist()
 
 
 def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
                   tile_px: int | None = None,
                   run_cap: int | None = None,
                   sort_by: str = "depth") -> BinnedKeys:
-    """Build the tile-sorted pair table from ``preprocess_faces`` output.
+    """Build the tile-sorted pair table from ``preprocess_faces`` output, at
+    static sizes with no host read (module docstring).
 
-    With ``tile_px`` (the tri render path), exact-coverage emission at
-    static sizes (no host read; see the module docstring); without it (the
-    tet first hit), or above the exact path's capacity limit, every tile of
-    the bbox rect is emitted, as in the JAX package, from counts read on
-    the host, which raises while a CUDA graph is being captured.
-    ``sort_by``: the per-face depth key that orders each tile's list,
-    "depth" (mean depth, tri) or "min_depth" (tet). The overflow is data
+    With ``tile_px`` (the tri render path), exact-coverage emission; without
+    it (the tet first hit), or above the exact path's capacity limit, every
+    tile of the bbox rect is emitted, as in the JAX package. ``sort_by``:
+    the per-face depth key that orders each tile's list, "depth" (mean
+    depth, tri) or "min_depth" (tet). The overflow is data
     (``warn_if_overflow`` reads it)."""
     if sort_by not in ("depth", "min_depth"):
         raise ValueError(f"sort_by must be 'depth' or 'min_depth', got "
@@ -250,12 +249,6 @@ def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
     B, F = tiles.shape
     dev = tiles.device
     if not (tile_px is not None and kcap < _EXACT_KCAP_MAX and tiles.numel()):
-        if is_capturing(dev):
-            raise RuntimeError(
-                "emit_and_sort: the bbox emission path (the tet first hit, "
-                f"or a key capacity >= {_EXACT_KCAP_MAX}) sizes its tables "
-                "from counts read on the host and cannot run while a CUDA "
-                "graph is being captured")
         return _emit_bbox(pre, grid_x, grid_y, kcap, sort_by)
     n_tiles = grid_x * grid_y
     rmin, rmax = pre["rect_min"], pre["rect_max"]
@@ -296,31 +289,34 @@ def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
 
 
 def _emit_bbox(pre, grid_x, grid_y, kcap, sort_by):
-    """Bbox emission: every tile of each emitting face's rect, the tables
-    sized from counts read on the host."""
+    """Bbox emission at ``kcap`` slots, the JAX package's bbox path: each
+    slot's owner face in the depth-presorted order and the face's first
+    slot (``owners``); slot k of a face's rect is tile (rx + k % nx,
+    ry + k // nx), nx clamped at 1 as JAX packs it. The same row-major
+    order within each rect as one run per tile row, so the live slots are
+    those of a host-sized emission, bit for bit."""
     tiles = pre["tiles"]
     B, F = tiles.shape
     dev = tiles.device
     n_tiles = grid_x * grid_y
+    dead_key = torch.full((kcap,), B * n_tiles, dtype=torch.int64,
+                          device=dev)
+    if B * F == 0:
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return _sort_and_ranges(dead_key, torch.zeros_like(dead_key),
+                                torch.zeros(0, dtype=torch.int64, device=dev),
+                                B * n_tiles, zero, zero > 0)
     rmin, rmax = pre["rect_min"], pre["rect_max"]
     sigma = _depth_presort(pre, tiles, sort_by)
-    take = lambda x: x.reshape(B * F, *x.shape[2:])[sigma]
-    ny_s = take(rmax[..., 1] - rmin[..., 1]).long()
-    ny_eff = torch.where(take(tiles) > 0, ny_s, 0)
-    n_runs = int(ny_eff.sum())
-    runq = _expand(ny_eff, n_runs)  # sorted-space face of each run
-    row_excl = torch.cumsum(ny_eff, 0) - ny_eff
-    ridx = torch.arange(n_runs, device=dev) - row_excl[runq]
-    rcnt = take(rmax[..., 0] - rmin[..., 0])[runq].long()
-    rlo = take(rmin[..., 0])[runq].long()
-    rty = take(rmin[..., 1])[runq].long() + ridx
-    total = rcnt.sum()
-    n_slots = min(int(total), kcap)
-    run = _expand(rcnt, n_slots)
-    excl = torch.cumsum(rcnt, 0) - rcnt
-    k = torch.arange(n_slots, device=dev) - excl[run]
-    bf = runq[run]
-    tile_key = (bf // F) * n_tiles + rty[run] * grid_x + rlo[run] + k
+    take = lambda x: x.reshape(B * F)[sigma]
+    face, live, excl, total = owners(take(tiles).long(), kcap)
+    k = torch.arange(kcap, device=dev) - excl[face]
+    nx = take(rmax[..., 0] - rmin[..., 0]).clamp(min=1).long()[face]
+    tx = take(rmin[..., 0]).long()[face] + k % nx
+    ty = take(rmin[..., 1]).long()[face] + k // nx
+    tile_key = torch.where(live, (face // F) * n_tiles + ty * grid_x + tx,
+                           dead_key)
+    bf = torch.where(live, face, B * F)
     return _sort_and_ranges(tile_key, bf, sigma, B * n_tiles, total,
                             total > kcap)
 

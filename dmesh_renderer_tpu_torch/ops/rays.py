@@ -51,8 +51,9 @@ def jitter_uniforms(seed: int, B: int, height: int, width: int,
     seed = int(seed)
     k0, k1 = (seed >> 32) & _M32, seed & _M32
     vidx = (torch.arange(B, **i64) + int(view_offset)) & _M32
-    f0, f1 = threefry2x32(torch.tensor(k0, **i64), torch.tensor(k1, **i64),
-                          torch.zeros_like(vidx), vidx)  # fold_in
+    # the key words as Python ints: no host-to-device copy (a CUDA graph
+    # capture refuses one)
+    f0, f1 = threefry2x32(k0, k1, torch.zeros_like(vidx), vidx)  # fold_in
     count = torch.arange(height * width, **i64)[None]
     out = []
     for half in (0, 1):  # split: the keys of counters (0, 0) and (0, 1)

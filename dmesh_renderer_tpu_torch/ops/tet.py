@@ -32,6 +32,24 @@ It re-walks every active ray from its last face back to its first:
   -> ``reduce_tet_records``: the records summed per face, then per vertex,
      through ``ops/reduce.py`` (``seg_sum``, no atomics).
 
+Every tensor of a frame has a static shape, as in the JAX package, so a
+frame and a train step run inside a CUDA graph capture: the first hit's
+pairs sit at ``kcap`` slots (``binning.emit_and_sort``), and K5's records at
+the capacity ``record_capacity`` = B * H * W * min(``LOG_CAP``, max_steps),
+the JAX package's static bound for the backward's memory. A ray whose
+record slots pass the capacity gets none, and ``render_tet_backward``
+flags it (``render_tet_backward.overflow``). The backward never drops a
+record, as JAX's ``lax.cond`` to its marching backward never does: an
+eager frame reads the first hit's overflow flag and pair count and the
+record total in one transfer after the march (``binning.warn_if_overflow``,
+the frame's one host read), and where the total passes the capacity its
+backward runs at the total's size. Under a capture nothing is read, and
+the flag stays on the device: ``models.dmesh``'s tet step reads it between
+its two graphs and redoes a flagged step eagerly. A caller who captures a
+tet backward elsewhere must read ``render_tet_backward.overflow`` after
+each replay in the same way: a set flag means that replay's gradients
+miss records.
+
 Not ported, by design: the phased lockstep march with its compaction, the
 per-view mega-table split, the entry-slot mega table with its mirror slots
 and gather index, and the (G, NS, 128) row packing. They exist to make the
@@ -52,7 +70,7 @@ from torch.autograd.function import once_differentiable
 
 from ..kernels import launch
 from ..utils.config import BIN_TILE, DEFAULT_MAX_MARCH_STEPS, T_EPS, TILE_X
-from .binning import default_key_capacity
+from .binning import default_key_capacity, warn_if_overflow
 from .geometry import (
     clamp_w,
     cross,
@@ -92,6 +110,9 @@ def first_hit_path(path):
         globals().update(zip(names, saved))
 
 
+# the context of the first hit's key capacity overflow warning
+FH_OVERFLOW_CONTEXT = "tet first hit; a dropped face cannot be hit"
+
 # log(T) after a face of opacity 1: log(T_EPS * 0.1), rounded to f32.
 LOG_T_FLOOR = float(torch.tensor(math.log(T_EPS * 0.1), dtype=torch.float32))
 TET_GEO_COLS = 40  # p0, e1, e2 of the 4 face slots (36), 4 outward signs
@@ -100,6 +121,10 @@ TET_ID_COLS = 8    # 4 face ids, 4 neighbour tet ids (-1: none)
 SHADE_COLS = 12    # 9 corner colours, alpha, log(max(1 - alpha, 1e-37)), inten
 
 REC_COLS = 10  # K5 record values: 9 colour moments (vertex-major), dL/dalpha
+# K5's records per ray in the static record capacity: the JAX package's
+# LOG_CAP, the depth of its march log and the static bound of its backward's
+# memory ("Memory: LOG_CAP * M * _NLOG * 4 bytes").
+LOG_CAP = 24
 # rows of the backward march's per-ray inputs (``bwd_start_state``)
 RAY_I_ROWS = 4   # start face, start tet, first face, record count
 RAY_F_ROWS = 11  # t, u, v, log T before the start face, dL/dC rgb, dL/dD,
@@ -122,7 +147,7 @@ def first_intersection_dense(verts, faces, valid, order, ray_o, ray_d):
     dev = verts.device
     valid_s = torch.take_along_dim(valid, order, dim=1)
     p = verts[faces.long()[order]]  # [B, F, 3, 3]
-    inf = torch.tensor(math.inf, device=dev)
+    inf = torch.full((), math.inf, device=dev)
 
     best = [torch.full((B, N), math.inf, device=dev),
             torch.full((B, N), -1, dtype=torch.int64, device=dev),
@@ -510,7 +535,9 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
     -- the march's inputs that the backward's re-walk reads again (ray_d
     [B*N, 3], cam_o [B, 3], zw [B*N, 4], march: the ``march_tables``) and
     the first hit's aux (fh_overflow, fh_num_rendered, fh_walked; False,
-    -1, -1 on the dense path)."""
+    -1, -1 on the dense path), and the static ``record_capacity`` of the
+    backward's records -- or, where an eager frame read a record total
+    above it, that total (the exact fallback; module docstring)."""
     from .tet_first_hit import first_intersection_binned
 
     B = mv_t.shape[0]
@@ -541,8 +568,9 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
         first_face, rt, iu, iv = first_intersection_dense(
             verts, faces, pre["valid"], order, ray_o.reshape(B, N, 3), ray_d)
         # the dense path scans every valid face: no capacity, cannot drop
-        fh_aux = (torch.tensor(False, device=dev),
-                  torch.tensor(-1, device=dev), torch.tensor(-1, device=dev))
+        fh_aux = (torch.zeros((), dtype=torch.bool, device=dev),
+                  torch.full((), -1, device=dev),
+                  torch.full((), -1, device=dev))
 
     march = march_tables(verts, faces, tets, tet_faces, face_tets,
                          verts_color, faces_opacity, faces_intense)
@@ -559,6 +587,14 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
                              max_steps)
 
     act = out_i[3] != 0
+    # the frame's one host read (none under a capture): the first hit's
+    # overflow and pair count, and the backward's record total
+    cap = record_capacity(B, height, width, max_steps)
+    read = warn_if_overflow(
+        fh_aux[0], fh_aux[1], kcap, FH_OVERFLOW_CONTEXT,
+        extra=(_record_counts(act, out_i[0], out_i[2]).sum(),))
+    if read is not None:
+        cap = max(cap, read[0])
     final_T = torch.exp(out_f[4])
     col = [torch.where(act, out_f[ch] + final_T * bg[ch], bg[ch])
            for ch in range(3)]
@@ -578,6 +614,7 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
         cam_o=cam_o,
         zw=zw,
         march=march,
+        record_capacity=cap,
         fh_overflow=fh_aux[0],
         fh_num_rendered=fh_aux[1],
         fh_walked=fh_aux[2],
@@ -589,6 +626,18 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
 # The backward march (kernel K5)
 # =============================================================================
 
+def record_capacity(B: int, height: int, width: int, max_steps: int) -> int:
+    """Rows of K5's record buffers: B * H * W * min(``LOG_CAP``,
+    ``max_steps``), the JAX package's static bound for the backward."""
+    return B * height * width * min(LOG_CAP, int(max_steps))
+
+
+def _record_counts(active, last_face, n_contrib):
+    """Each ray's record count: ``n_contrib``, or 0 for a ray that is
+    inactive or blended nothing."""
+    return torch.where(active & (last_face != -1), n_contrib, 0).long()
+
+
 def bwd_start_state(saved, face_tets, dL_dcolor, dL_ddepth, bg):
     """Each ray's start state for the backward march, from the forward's
     ``saved`` and the upstream gradients dL/dcolor [B, 3, H, W] and
@@ -598,11 +647,14 @@ def bwd_start_state(saved, face_tets, dL_dcolor, dL_ddepth, bg):
     first entry of the face's ``face_tets`` that is not the forward's last
     tet), with t/u/v from Moller-Trumbore on the face. A ray that is
     inactive or blended nothing gets no records; every other ray gets
-    ``n_contrib`` slots, at the exclusive sum of the counts before it.
+    ``n_contrib`` slots, at the exclusive sum of the counts before it,
+    unless they pass ``saved["record_capacity"]``: then it gets none.
     Returns (ray_i [4, M] int32: start face, start tet, first face, record
     count; ray_f [11, M] f32: t, u, v, the log T before the start face,
     dL/dC rgb, dL/dD, bg . dL/dC + dL/dD, final T, final prev T; off [M]
-    int64, the first slot of each ray; the number of records)."""
+    int64, the first slot of each ray; the record capacity, an int; the
+    number of records, a 0-d int64 tensor; and overflow, a 0-d bool
+    tensor: the records passed the capacity). No host read."""
     B, N = saved["last_face"].shape
     M = B * N
     dev = bg.device
@@ -618,10 +670,12 @@ def bwd_start_state(saved, face_tets, dL_dcolor, dL_ddepth, bg):
     ftc = face_tets[lfs]
     start_tet = torch.where(ftc[:, 0] != saved["last_tet"].reshape(M),
                             ftc[:, 0], ftc[:, 1])
-    done = ~saved["is_active"].reshape(M) | (lf == -1)
-    n_rec = torch.where(done, 0, saved["n_contrib"].reshape(M))
-    n64 = n_rec.long()
+    n64 = _record_counts(saved["is_active"].reshape(M), lf,
+                         saved["n_contrib"].reshape(M))
     off = torch.cumsum(n64, 0) - n64
+    cap = saved["record_capacity"]
+    total = n64.sum()
+    n_rec = torch.where(off + n64 <= cap, n64, 0)
     gc = [dL_dcolor[:, ch].reshape(M) for ch in range(3)]
     gdep = dL_ddepth[:, 0].reshape(M)
     bg_dot = bg[0] * gc[0] + bg[1] * gc[1] + bg[2] * gc[2] + gdep
@@ -631,7 +685,8 @@ def bwd_start_state(saved, face_tets, dL_dcolor, dL_ddepth, bg):
                          torch.exp(plt)])
     ray_i = torch.stack([lf, start_tet, saved["first_face"].reshape(M),
                          n_rec]).to(torch.int32)
-    return ray_i.contiguous(), ray_f.contiguous(), off, int(n64.sum())
+    return (ray_i.contiguous(), ray_f.contiguous(), off, cap, total,
+            total > cap)
 
 
 def _check_bwd_args(ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_nrm,
@@ -667,14 +722,16 @@ def bwd_march(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int, tet_geo,
     and write one gradient record per visited face.
 
     ray_d [M, 3], cam_o [B, 3], zw [M, 4] as for ``fwd_march``; ray_i,
-    ray_f, off and ``n_records`` from ``bwd_start_state``; the tables of
-    ``march_tables``. Returns (keys [R] int32: the face of each record, F
-    for a slot the re-walk did not fill; rec [R, 10] f32: the nine colour
+    ray_f, off and ``n_records`` (the record capacity R) from
+    ``bwd_start_state``; the tables of ``march_tables``. Returns (keys [R]
+    int32: the face of each record, F for a slot the re-walk did not fill
+    and for the slots past the records; rec [R, 10] f32: the nine colour
     moments, vertex-major, and dL/dalpha; bad [M] uint8: 1 where the
     re-walk did not retrace the forward, that is, it broke, left the mesh,
     or did not meet the first face at exactly the ray's last slot). The
     number of such rays of the last call is ``bwd_march.mismatches``, a
-    0-d tensor on the call's device.
+    0-d tensor on the call's device. The card leaves the rows of ``rec``
+    past the records unwritten; their key F keeps them out of the reduce.
 
     On CUDA tensors this launches the kernel of csrc/tet_bwd.cu (and raises
     if it cannot); on CPU tensors it runs ``bwd_march_plain``."""
@@ -694,7 +751,7 @@ def bwd_march(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int, tet_geo,
     M = ray_d.shape[0]
     F = shade.shape[0] // cam_o.shape[0]
     dev = ray_d.device
-    keys = torch.empty((n_records,), dtype=torch.int32, device=dev)
+    keys = torch.full((n_records,), F, dtype=torch.int32, device=dev)
     rec = torch.empty((n_records, REC_COLS), dtype=torch.float32, device=dev)
     bad = torch.empty((M,), dtype=torch.uint8, device=dev)
     launch("tet_bwd", "tet_bwd_march", tensors + [keys, rec, bad], [M, N, F],
@@ -786,10 +843,12 @@ def bwd_march_plain(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int,
 
 def reduce_tet_records(keys, rec, faces, n_verts: int):
     """K5's records -> (g_vcolor [P, 3], g_fopacity [F]): the records summed
-    per face in slot order (the absorber key F is dropped), then the nine
-    colour moments of each face summed per vertex, both by ``seg_sum``."""
+    per face in slot order, then the nine colour moments of each face summed
+    per vertex, both by ``seg_sum``. The rows of key F (the absorber, and
+    the capacity's rows past the records) lie past every segment of
+    ``segment_csr(keys, F)``, so ``seg_sum`` never reads them."""
     F = faces.shape[0]
-    face_acc = seg_sum(rec, segment_csr(keys, F + 1))[:F]
+    face_acc = seg_sum(rec, segment_csr(keys, F))
     g_vcolor = corner_sum(faces, n_verts,
                           face_acc[:, :9].reshape(F * 3, 3))
     return g_vcolor, face_acc[:, 9].contiguous()
@@ -798,9 +857,13 @@ def reduce_tet_records(keys, rec, faces, n_verts: int):
 def render_tet_backward(saved, faces, face_tets, bg, n_verts: int,
                         dL_dcolor, dL_ddepth):
     """The gradients of ``verts_color`` [P, 3] and ``faces_opacity`` [F]
-    from the forward's ``saved`` and the upstream gradients."""
-    ray_i, ray_f, off, n_records = bwd_start_state(saved, face_tets,
-                                                   dL_dcolor, dL_ddepth, bg)
+    from the forward's ``saved`` and the upstream gradients. Sets
+    ``render_tet_backward.overflow``, a 0-d bool tensor on the device: the
+    records passed the capacity and the gradients miss some (only ever
+    under a capture; module docstring)."""
+    ray_i, ray_f, off, n_records, _total, overflow = bwd_start_state(
+        saved, face_tets, dL_dcolor, dL_ddepth, bg)
+    render_tet_backward.overflow = overflow
     m = saved["march"]
     keys, rec, _bad = bwd_march(saved["ray_d"], saved["cam_o"], saved["zw"],
                                 ray_i, ray_f, off, n_records, m["tet_geo"],
@@ -809,10 +872,12 @@ def render_tet_backward(saved, faces, face_tets, bg, n_verts: int,
     return reduce_tet_records(keys, rec, faces, n_verts)
 
 
+render_tet_backward.overflow = None
+
 # what the backward reads of the forward's ``saved``
 _BWD_SAVED = ("first_face", "last_face", "last_tet", "n_contrib",
               "final_log_T", "final_prev_log_T", "is_active", "ray_d",
-              "cam_o", "zw", "march")
+              "cam_o", "zw", "march", "record_capacity")
 # the float inputs of _RenderTet that get zero gradients
 _ZERO_GRAD_INPUTS = (0, 4, 5, 6, 7, 8, 12)
 

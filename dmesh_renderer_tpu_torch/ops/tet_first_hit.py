@@ -22,7 +22,7 @@ import torch
 
 from ..kernels import launch
 from ..utils.config import BIN_TILE
-from .binning import emit_and_sort, warn_if_overflow
+from .binning import emit_and_sort
 from .geometry import cross
 
 TILE = BIN_TILE  # side of the pixel tile one kernel block covers
@@ -201,7 +201,10 @@ def first_intersection_binned(verts, faces, pre, cam_o, ray_d, height: int,
     (overflow bool[], num_rendered int64[], walked int64[])): whether the
     key capacity dropped (face, tile) pairs (a dropped pair makes that face
     unhittable in that tile), how many pairs the faces emitted, and how many
-    list slots the kernel staged."""
+    list slots the kernel staged. Static shapes, no host read: the pairs
+    sit at ``kcap`` slots (``binning.emit_and_sort``'s bbox path), and the
+    caller reads and warns about the overflow (``tet.render_tet_forward``,
+    in the frame's one host read)."""
     gx = (width + TILE - 1) // TILE
     gy = (height + TILE - 1) // TILE
     keys = emit_and_sort(pre, gx, gy, kcap, sort_by="min_depth")
@@ -209,8 +212,6 @@ def first_intersection_binned(verts, faces, pre, cam_o, ray_d, height: int,
                                   pre["max_depth"])[keys.sigma]
     face, t, u, v, walked = first_hit(keys.starts, keys.ends, keys.slot_face,
                                       table, ray_d, B, height, width)
-    warn_if_overflow(keys.overflow, keys.total, kcap,
-                     "tet first hit; a dropped face cannot be hit")
     N = height * width
     return (face.reshape(B, N), t.reshape(B, N), u.reshape(B, N),
             v.reshape(B, N),

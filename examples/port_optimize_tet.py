@@ -119,8 +119,10 @@ def fit(device, ranks, steps, out_dir):
                        requires_grad=True))
         if mesh is not None:
             scene = parallel.replicate_params(mesh, scene)
-        return init_tet_train_state(scene,
-                                    lambda p: torch.optim.Adam(p, lr=2e-2))
+        # capturable: on the card the step runs as CUDA graphs (the CPU's
+        # Adam refuses the flag)
+        return init_tet_train_state(scene, lambda p: torch.optim.Adam(
+            p, lr=2e-2, capturable=dev.type == "cuda"))
 
     state = fresh_state()
     step = make_tet_train_step(geom, bg, H, W, mesh=mesh)

@@ -6,8 +6,8 @@ loop; a ``TriRenderer`` frame captured by the caller's ``torch.cuda.graph``
 against the eager frame; the overflow under capture kept as data; a batch
 of new shapes capturing a graph of its own; a resume after captured steps;
 the host syncs of an eager and a captured frame (``set_sync_debug_mode``);
-and the refusals (a non-capturable optimiser, the bbox path under
-capture).
+and the refusals (a non-capturable optimiser), beside the bbox path
+captured.
 
 Marked ``gpu``; each test skips without a CUDA device. This file imports
 no JAX:
@@ -233,8 +233,8 @@ def test_host_syncs(cuda):
 
 def test_refusals(cuda):
     """On the card a step whose optimiser is not capturable raises (it
-    does not quietly stay eager), and the bbox emission path raises under
-    capture."""
+    does not quietly stay eager); the bbox emission path runs under capture
+    and its replay equals the eager result."""
     fresh, faces, batch = _problem(cuda)
     step = dmesh.make_train_step(faces, torch.zeros(3, device=cuda), H, W)
     st = fresh()
@@ -245,8 +245,18 @@ def test_refusals(cuda):
                                   capture=False)
     _st, loss = eager(st, batch)  # capture=False: every step eager
     assert bool(torch.isfinite(loss))
-    pre = {"tiles": torch.ones((1, 4), dtype=torch.int32, device=cuda)}
+    gen = torch.Generator().manual_seed(2)
+    rmin = torch.randint(0, 3, (2, 40, 2), generator=gen, dtype=torch.int32)
+    pre = {k: v.to(cuda) for k, v in (
+        ("rect_min", rmin),
+        ("rect_max", rmin + torch.randint(0, 3, (2, 40, 2), generator=gen,
+                                          dtype=torch.int32)),
+        ("min_depth", torch.rand((2, 40), generator=gen)))}
+    pre["tiles"] = (pre["rect_max"] - pre["rect_min"]).prod(-1).int()
+    want = binning.emit_and_sort(pre, 5, 5, 256, sort_by="min_depth")
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        with pytest.raises(RuntimeError, match="bbox emission path"):
-            binning.emit_and_sort(pre, 3, 3, 1024)
+        got = binning.emit_and_sort(pre, 5, 5, 256, sort_by="min_depth")
+    g.replay()
+    torch.cuda.synchronize()
+    assert _equal(want, got) and int(got.total) > 0

@@ -6,10 +6,10 @@ different pair counts give ``BinnedKeys``, K2 records and slot ids of the
 same shapes. The overflow stays data (the JAX package's flag and
 ``num_rendered`` at a capacity that drops pairs), an eager frame reads it
 once and warns once, and under a capture nothing is read and the bbox path
-raises. ``make_train_loop`` takes the JAX package's ``lax.scan`` loop's
-steps (``test_torch_train.py``'s tolerances). The card's side -- the
-captured step and frame, bitwise against eager ones, and the host syncs --
-is ``test_torch_gpu_graph.py``.
+runs at static shapes. ``make_train_loop`` takes the JAX package's
+``lax.scan`` loop's steps (``test_torch_train.py``'s tolerances). The
+card's side -- the captured step and frame, bitwise against eager ones,
+and the host syncs -- is ``test_torch_gpu_graph.py``.
 """
 
 import warnings
@@ -116,18 +116,28 @@ def test_eager_frame_warns_once(grad):
 def test_capture_reads_nothing_and_bbox_raises(monkeypatch):
     """With a capture pretended (``binning.is_capturing``), an overflowing
     frame reads and warns nothing and returns its flag as data; the bbox
-    emission path, which reads counts on the host, raises."""
+    emission path (the tet first hit, and tri above ``_EXACT_KCAP_MAX``,
+    lowered here to take it at a small capacity) runs at ``kcap`` slots and
+    gives the eager frame's keys and image bit for bit."""
     args = _args(6)
+    monkeypatch.setattr(tb, "_EXACT_KCAP_MAX", KCAP)
+    eager = ttb._forward(*args, H, W, KCAP, None)
     monkeypatch.setattr(tb, "is_capturing", lambda device: True)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         _c, _d, (ovf, _n) = ttb.render_tri_binned(*args, H, W, 64, True)
+        got = ttb._forward(*args, H, W, KCAP, None)
     assert bool(ovf)
-    pre = {"tiles": torch.ones((2, 3), dtype=torch.int32)}
-    with pytest.raises(RuntimeError, match="bbox emission path"):
-        tb.emit_and_sort(pre, 2, 2, KCAP)
-    with pytest.raises(RuntimeError, match="bbox emission path"):
-        ttb._forward(*args, H, W, 1 << 28, None)
+    assert got[2].slot_face.numel() == KCAP and not bool(got[2].overflow)
+    for a, b in zip((*eager[:2], *eager[2]), (*got[:2], *got[2])):
+        assert torch.equal(a, b)
+    pre = {"tiles": torch.ones((2, 3), dtype=torch.int32),
+           "rect_min": torch.zeros((2, 3, 2), dtype=torch.int32),
+           "rect_max": torch.ones((2, 3, 2), dtype=torch.int32),
+           "depth": torch.rand(2, 3)}
+    keys = tb.emit_and_sort(pre, 2, 2, KCAP)
+    assert int(keys.total) == 6 and int(keys.ends[-1]) == 6
+    assert keys.slot_face.numel() == KCAP
 
 
 def test_train_loop_matches_jax_scan(problem):  # noqa: F811

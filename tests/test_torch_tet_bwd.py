@@ -293,10 +293,12 @@ def test_rewalk_retraces_the_forward(name, request):
 
 def test_bwd_march_records(spec):
     """K5's plain version writes one record per blend of an active ray, in
-    its slots, with the face as key, and fills nothing else."""
+    its slots, with the face as key, and fills nothing else: the buffers
+    have the static record capacity's rows, and the rows past the records
+    keep the key F and zeros."""
     s = spec
     _c, _d, _a, saved = pt.render_tet_forward(*s["t"], s["h"], s["w"], 0)
-    ray_i, ray_f, off, n = pt.bwd_start_state(
+    ray_i, ray_f, off, n, total, overflow = pt.bwd_start_state(
         saved, s["t"][10], torch.from_numpy(s["wc"]), torch.from_numpy(s["wd"]),
         s["t"][12])
     m = saved["march"]
@@ -308,10 +310,15 @@ def test_bwd_march_records(spec):
     assert pt.bwd_march.launches == before  # the plain version on the CPU
     act = saved["is_active"].reshape(-1)
     nc = saved["n_contrib"].reshape(-1)
-    assert n == int(nc[act].sum()) and keys.shape == (n,)
+    B = s["t"][4].shape[0]
+    assert n == pt.record_capacity(B, s["h"], s["w"], 512)
+    assert int(total) == int(nc[act].sum()) < n and not bool(overflow)
+    assert keys.shape == (n,)
     assert rec.shape == (n, pt.REC_COLS) and not bool(bad.any())
     F = s["t"][1].shape[0]
-    assert int(keys.min()) >= 0 and int(keys.max()) < F
+    live = int(total)
+    assert int(keys[:live].min()) >= 0 and int(keys[:live].max()) < F
+    assert bool((keys[live:] == F).all()) and not bool(rec[live:].any())
     # each active ray's records run from its last face to its first
     r = torch.nonzero(act & (nc >= 2)).squeeze(1)
     assert torch.equal(keys[off[r]], saved["last_face"].reshape(-1)[r])

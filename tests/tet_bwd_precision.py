@@ -34,12 +34,9 @@ def float64_tet_module():
     """``ops/tet.py`` with float64 buffers and the exact square root."""
     src = open(pt.__file__).read()
     src = src.replace("from __future__ import annotations", "")
-    for mod in ("..utils.config", ".binning", ".geometry", ".rays",
-                ".reduce"):
-        pkg = ("dmesh_renderer_tpu_torch.utils.config"
-               if mod == "..utils.config"
-               else "dmesh_renderer_tpu_torch.ops" + mod)
-        src = src.replace(f"from {mod} import", f"from {pkg} import")
+    # the relative imports as absolute ones (the package's, then ops')
+    src = src.replace("from ..", "from dmesh_renderer_tpu_torch.")
+    src = src.replace("from .", "from dmesh_renderer_tpu_torch.ops.")
     src = src.replace("dtype=torch.float32", "dtype=torch.float64")
     src = src.replace("norm = sqrt_rn(", "norm = torch.sqrt(")
     mod = types.ModuleType("tet_float64")
@@ -60,23 +57,26 @@ def main():
     wd = torch.from_numpy(rng.randn(tga.B, 1, H, W).astype(np.float32))
     _c, _d, _a, saved = pt.render_tet_forward(*t, H, W, tga.SEED)
     m = saved["march"]
-    ray_i, ray_f, off, n = pt.bwd_start_state(saved, t[10], wc, wd, t[12])
+    ray_i, ray_f, off, n, total, _ovf = pt.bwd_start_state(saved, t[10], wc,
+                                                           wd, t[12])
     keys, rec, bad = pt.bwd_march_plain(
         saved["ray_d"], saved["cam_o"], saved["zw"], ray_i, ray_f, off, n,
         m["tet_geo"], m["tet_nrm"], m["tet_ids"], m["shade"], H * W)
     g_vc, g_fo = pt.reduce_tet_records(keys, rec, t[1], t[0].shape[0])
 
     t64 = float64_tet_module()
-    d = lambda x: x.double() if x.is_floating_point() else x
+    d = lambda x: (x.double() if isinstance(x, torch.Tensor)
+                   and x.is_floating_point() else x)
     s64 = {k: d(saved[k]) for k in pt._BWD_SAVED if k != "march"}
     s64["march"] = {k: d(v) for k, v in m.items()}
-    ray_i2, ray_f2, off2, n2 = t64.bwd_start_state(s64, t[10], d(wc), d(wd),
-                                                   d(t[12]))
+    ray_i2, ray_f2, off2, n2, total2, _ovf2 = t64.bwd_start_state(
+        s64, t[10], d(wc), d(wd), d(t[12]))
     keys2, rec2, bad2 = t64.bwd_march_plain(
         d(saved["ray_d"]), d(saved["cam_o"]), d(saved["zw"]), ray_i2,
         ray_f2, off2, n2, d(m["tet_geo"]), d(m["tet_nrm"]), m["tet_ids"],
         d(m["shade"]), H * W)
-    print(f"records {n} (float64 re-walk {n2}); keys equal "
+    print(f"records {int(total)} (float64 re-walk {int(total2)}); "
+          f"keys equal "
           f"{torch.equal(keys, keys2)}; re-walk mismatches {int(bad.sum())} "
           f"(float64 {int(bad2.sum())})")
 
