@@ -1,7 +1,8 @@
 """Drive the torch port's tri renderer and tet renderer, forward and
-backward, their train steps on one process and on a 2-rank view mesh, the
-example loops and the parity fuzz harnesses, on one CUDA card, check them,
-and time the dispatch thresholds' ladder.
+backward, their train steps on one process, on a 2-rank view mesh and as
+CUDA graphs (with and without an NCCL mesh), the example loops and the
+parity fuzz harnesses, on one CUDA card, check them, and time the dispatch
+thresholds' ladder.
 
     python3 chip_smoke.py
 
@@ -190,7 +191,21 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
     20 steps, host syncs (eager at most 1, a captured frame 0, a captured
     step exactly 1), device events, busy share, peak memory, and the bbox
     emission's, record CSR's and record reduce's device times;
-30. print one JSON line of per-kernel numbers, and as the last line
+30. the sharded train steps and loops as CUDA graphs over NCCL, on a
+    world-1 mesh (one rank on the card, ``parallel.spawn(..., 1,
+    backend="nccl")``) at the tri headline and the tet headline at one
+    view (ray seed 3): 5 captured sharded steps, a 5-step loop and 5
+    captured steps without a mesh bitwise equal to 5 eager sharded steps
+    (capturable Adam), parameters and gradients; the launch counts of one
+    capture (set to 0 just before); the host syncs of a replayed sharded
+    step (tri 0, tet 1: the flag summed in the all-reduced buffer); at
+    the tet small scene a record capacity of one record a ray, under which
+    every replayed G1 flags the overflow and the step takes the exact
+    fallback, bitwise the eager sharded steps; then ``tools.mesh_step_ms``'s
+    1-rank point at both headlines (eager and captured sharded ms, host
+    syncs, busy share, the all-reduce's device ms in the step and alone,
+    peak memory, the loop's ms per step);
+31. print one JSON line of per-kernel numbers, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -2093,7 +2108,8 @@ def launch_counters():
 def mv_problem(kind, cfg, dev):
     """The multi-view problem ``kind`` ("tri" or "tet") on ``dev``, every
     view: (fresh(optimizer, mesh) -> TrainState, the step builder
-    mesh -> step, the B-view batch). Zero target and background."""
+    mesh -> step, the loop builder (n, mesh) -> loop, the B-view batch).
+    Zero target and background."""
     from dmesh_renderer_tpu_torch import parallel
     from dmesh_renderer_tpu_torch.models import dmesh
 
@@ -2110,8 +2126,12 @@ def mv_problem(kind, cfg, dev):
         def make_step(mesh, capture=True):
             return dmesh.make_train_step(fargs[1], zeros, H, W, mesh=mesh,
                                          capture=capture)
+
+        def make_loop(n, mesh):
+            return dmesh.make_train_loop(fargs[1], zeros, H, W, n, mesh=mesh)
     else:
-        user, fargs, _bg = tet_user(c["n_grid"], B, 0.15, 2, dev)
+        user, fargs, _bg = tet_user(c["n_grid"], B, c.get("jitter", 0.15),
+                                    c.get("gseed", 2), dev)
         leaves = (fargs[2], fargs[3])
         batch = dmesh.TetViewBatch(*fargs[4:9], target)
         geom = dmesh.TetGeometry(fargs[0], fargs[1], *fargs[9:12])
@@ -2120,6 +2140,10 @@ def mv_problem(kind, cfg, dev):
             return dmesh.make_tet_train_step(geom, zeros, H, W, mesh=mesh,
                                              seed=c["ray_seed"],
                                              capture=capture)
+
+        def make_loop(n, mesh):
+            return dmesh.make_tet_train_loop(geom, zeros, H, W, n, mesh=mesh,
+                                             seed=c["ray_seed"])
 
     scene_type = dmesh.TriScene if kind == "tri" else dmesh.TetScene
 
@@ -2130,7 +2154,7 @@ def mv_problem(kind, cfg, dev):
             scene = parallel.replicate_params(mesh, scene)
         return dmesh.init_train_state(scene, optimizer)
 
-    return fresh, make_step, batch
+    return fresh, make_step, make_loop, batch
 
 
 def _sgd(params):
@@ -2343,9 +2367,11 @@ def mv_rank():
     out = {"rank": mesh.rank, "size": mesh.size, "device": str(dev),
            "started": started}
     for kind in ("tri", "tet"):
-        fresh, make_step, batch = mv_problem(kind, MV_CFG, dev)
+        fresh, make_step, _loop, batch = mv_problem(kind, MV_CFG, dev)
         local = parallel.shard_view_batch(mesh, batch)
-        step = make_step(mesh)
+        # the eager sharded step, whatever the backend (over NCCL, with a
+        # card per rank, phase 30 captures it)
+        step = make_step(mesh, capture=False)
         r = {"local_views": int(local.mv_t.shape[0])}
         st, loss = step(fresh(_sgd, mesh), local)
         r["sgd"] = {"loss": float(loss),
@@ -2401,7 +2427,7 @@ def multi_view_phases(dev):
            "rank_start_s": start_s, "rank_work_s": work_s}
     for kind in ("tri", "tet"):
         rs = [r[kind] for r in ranks]
-        fresh, make_step, batch = mv_problem(kind, MV_CFG, dev)
+        fresh, make_step, _loop, batch = mv_problem(kind, MV_CFG, dev)
         # one process's eager step, beside the sharded (eager) ones
         step = make_step(None, capture=False)
         st, loss = step(fresh(_sgd), batch)
@@ -2491,7 +2517,7 @@ def checkpoint_phases(dev):
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for kind in ("tri", "tet"):
-            fresh, make_step, batch = mv_problem(kind, cfg, dev)
+            fresh, make_step, _loop, batch = mv_problem(kind, cfg, dev)
             step = make_step(None)
             # both steps are captured on the card: a capturable optimiser
             adam = _adam_capturable
@@ -2802,6 +2828,195 @@ def tet_capture_phases(dev):
             f"(share {x['busy_share']:.3f}), peak {x['peak_mib']:.1f} MiB")
     log(f"  make_tet_train_loop: {m['loop_ms_per_step']:.3f} ms per step at "
         f"{m['loop_steps']} steps; stages {m['stages']}")
+    return out
+
+
+# ---- the sharded steps as CUDA graphs over NCCL (one rank per card)
+
+# Phase 30's problems: the tri and tet headlines at one view on a world-1
+# NCCL mesh (the one card; a multi-card run is tests/test_torch_gpu_nccl.py
+# and tools/mesh_step_ms.py), the tet rays jittered (seed 3, keyed by the
+# rank's view offset); the forced record overflow at the tet small scene.
+MESH_CFG = {"tri": dict(n_tris=100_000, n_views=1, height=800, width=800,
+                        seed=0),
+            "tet": dict(n_grid=20, n_views=1, height=800, width=800,
+                        ray_seed=3)}
+MESH_SMALL = {"tet": dict(n_grid=TET_SMALL[0], jitter=TET_SMALL[1],
+                          gseed=TET_SMALL[2], n_views=TET_SMALL[3],
+                          height=TET_SMALL[4], width=TET_SMALL[5],
+                          ray_seed=TET_SMALL[6])}
+MESH_GRAPH_KERNELS = {"tri": TRI_GRAPH_KERNELS, "tet": TET_GRAPH_KERNELS}
+
+
+def _mesh_run(step, state, batch, n, counters=None):
+    """``n`` steps: each loss, the digest of the parameters and gradients
+    after each, the step's counts, and (with ``counters``) the launches of
+    step 2, the capture (counts set to 0 just before it)."""
+    losses, digests, launched = [], [], None
+    for i in range(n):
+        if counters is not None and i == 1:
+            for w in counters.values():
+                w.launches = 0
+        state, loss = step(state, batch)
+        if counters is not None and i == 1:
+            sync(batch[0].device)
+            launched = {k: w.launches for k, w in counters.items()}
+        losses.append(float(loss))
+        digests.append(digest([*state.scene,
+                               *(p.grad for p in state.scene)]))
+    return state, {"losses": losses, "digests": digests,
+                   "counts": [step.captures, step.replays, step.fallbacks],
+                   "launches_per_capture": launched}
+
+
+def mesh_graph_rank():
+    """The rank of phase 30, on a world-1 NCCL mesh: at each headline 5
+    eager sharded steps, 5 captured ones (the capture's launches), the
+    host syncs of a replayed step, a 5-step loop and 5 captured steps
+    without a mesh; the tet record overflow forced at the small scene;
+    then ``tools.mesh_step_ms``'s numbers of this 1-rank point."""
+    from dmesh_renderer_tpu_torch import parallel
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+    from dmesh_renderer_tpu_torch.tools import mesh_step_ms, tri_step_ms
+
+    mesh = parallel.make_view_mesh()
+    dev = mesh.device
+    counters = launch_counters()
+    out = {"backend": torch.distributed.get_backend(mesh.group),
+           "capturable": parallel.graph_capturable(mesh),
+           "device": str(dev), "size": mesh.size}
+    for kind in ("tri", "tet"):
+        fresh, make_step, make_loop, batch = mv_problem(kind, MESH_CFG, dev)
+        local = parallel.shard_view_batch(mesh, batch)
+        x = {}
+        _s, x["eager"] = _mesh_run(make_step(mesh, capture=False),
+                                   fresh(_adam_capturable, mesh), local,
+                                   MV_STEPS)
+        step = make_step(mesh)
+        st, x["captured"] = _mesh_run(step, fresh(_adam_capturable, mesh),
+                                      local, MV_STEPS, counters)
+        x["replay_syncs"] = tri_step_ms.host_syncs(lambda: step(st, local))
+        loop = make_loop(MV_STEPS, mesh)
+        sl, losses = loop(fresh(_adam_capturable, mesh), local)
+        x["loop"] = {"losses": losses.tolist(),
+                     "digest": digest([*sl.scene,
+                                       *(p.grad for p in sl.scene)]),
+                     "counts": [loop.step.captures, loop.step.replays]}
+        _s, x["single"] = _mesh_run(make_step(None), fresh(_adam_capturable),
+                                    local, MV_STEPS)
+        out[kind] = x
+        del st, sl, step, loop, _s
+    fresh, make_step, _loop, batch = mv_problem("tet", MESH_SMALL, dev)
+    local = parallel.shard_view_batch(mesh, batch)
+    _s, want = _mesh_run(make_step(mesh, capture=False),
+                         fresh(_adam_capturable, mesh), local, 4)
+    saved_cap = pt.LOG_CAP
+    pt.LOG_CAP = 1  # one record a ray: every replayed G1 overflows
+    try:
+        _s, got = _mesh_run(make_step(mesh), fresh(_adam_capturable, mesh),
+                            local, 4)
+    finally:
+        pt.LOG_CAP = saved_cap
+    out["forced"] = {"want": want, "got": got}
+    del _s
+    torch.cuda.empty_cache()
+    out["mesh_step_ms"] = {kind: mesh_step_ms.measure_rank(mesh, kind, 20,
+                                                           20)
+                           for kind in ("tri", "tet")}
+    return out
+
+
+def mesh_graph_phases():
+    """Phase 30: the sharded train steps and loops of both renderers as
+    CUDA graphs over NCCL, on a world-1 mesh (one rank on the card) at
+    both headlines (module docstring). Returns the numbers."""
+    from dmesh_renderer_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    r = parallel.spawn(mesh_graph_rank, 1, backend="nccl",
+                       timeout=MV_TIMEOUT)[0]
+    check((r["backend"], r["capturable"], r["size"]) == ("nccl", True, 1),
+          f"phase 30's mesh: {r['backend']}, capturable {r['capturable']}")
+    out = {"spawn_s": time.perf_counter() - t0}
+    for kind in ("tri", "tet"):
+        x = r[kind]
+        want = x["eager"]
+        for name in ("captured", "single"):
+            check(x[name]["losses"] == want["losses"]
+                  and x[name]["digests"] == want["digests"],
+                  f"mesh {kind}: the {name} steps differ from the eager "
+                  f"sharded steps: {x[name]['losses']} vs {want['losses']}")
+        check(x["loop"]["losses"] == want["losses"]
+              and x["loop"]["digest"] == want["digests"][-1],
+              f"mesh {kind}: the captured loop differs from the eager "
+              "sharded steps")
+        check(x["captured"]["counts"] == [1, MV_STEPS - 1, 0]
+              and x["single"]["counts"] == [1, MV_STEPS - 1, 0]
+              and want["counts"] == [0, 0, 0]
+              and x["loop"]["counts"] == [1, MV_STEPS - 1],
+              f"mesh {kind}: captures, replays and fallbacks "
+              f"{x['captured']['counts']}, loop {x['loop']['counts']}")
+        syncs = 0 if kind == "tri" else 1
+        check(x["replay_syncs"] == syncs,
+              f"mesh {kind}: {x['replay_syncs']} host syncs in a replayed "
+              f"sharded step, not {syncs}")
+        launched = x["captured"]["launches_per_capture"]
+        names = MESH_GRAPH_KERNELS[kind]
+        if kind == "tri":
+            ok = all(launched[k] >= 1 for k in names)
+        else:
+            ok = (all(launched[k] == 1 for k in names[:3])
+                  and launched["seg_sum"] == 2)
+        check(ok, f"mesh {kind}: the capture's launches {launched}")
+        check(want["losses"][-1] < want["losses"][0],
+              f"mesh {kind}: the loss did not fall: {want['losses']}")
+        out[kind] = {"losses": want["losses"],
+                     "launches_per_capture": {k: launched[k]
+                                              for k in names},
+                     "replays": x["captured"]["counts"][1]
+                     + x["loop"]["counts"][1],
+                     "replay_host_syncs": x["replay_syncs"]}
+        log(f"mesh {kind} (world 1, NCCL, {r['device']}): 5 captured "
+            f"sharded steps, a 5-step loop and 5 captured steps without a "
+            f"mesh bitwise equal to 5 eager sharded steps (capturable "
+            f"Adam), losses {want['losses']}; one capture launched "
+            f"{out[kind]['launches_per_capture']} through the wrappers; "
+            f"{x['replay_syncs']} host syncs in a replayed step")
+    f = r["forced"]
+    check(f["got"]["counts"] == [1, 0, 3]
+          and f["got"]["losses"] == f["want"]["losses"]
+          and f["got"]["digests"] == f["want"]["digests"],
+          f"mesh tet small: the forced record overflow: counts "
+          f"{f['got']['counts']}, losses {f['got']['losses']} vs "
+          f"{f['want']['losses']}")
+    out["forced_overflow_fallbacks"] = f["got"]["counts"][2]
+    log("mesh tet small, record capacity at one record a ray: 4 sharded "
+        "steps, 3 of them replays of G1 whose summed flag took the exact "
+        "fallback, bitwise equal to eager sharded steps")
+    m = r["mesh_step_ms"]
+    for kind in ("tri", "tet"):
+        e, c = m[kind]["step_eager"], m[kind]["step_captured"]
+        check(e["host_syncs"] <= 1 and e["captures"] == 0,
+              f"mesh_step_ms {kind}: the eager step: {e}")
+        check(c["host_syncs"] == (0 if kind == "tri" else 1)
+              and c["captures"] >= 1 and c["replays"] > 0
+              and c["fallbacks"] == 0 and m[kind]["bitwise"],
+              f"mesh_step_ms {kind}: the captured step: {c}, bitwise "
+              f"{m[kind]['bitwise']}")
+        for name, v in (("eager", e), ("captured", c)):
+            log(f"  mesh_step_ms 1 rank, {kind} {name} sharded step: "
+                f"{v['ms']:.3f} ms, {v['host_syncs']} host syncs, "
+                f"{v['device_events']} device events, busy "
+                f"{v['busy_ms']:.3f} ms (share {v['busy_share']:.3f}), "
+                f"NCCL {v['nccl_device_ms']:.4f} ms, peak "
+                f"{v['peak_mib']:.1f} MiB")
+        log(f"  mesh_step_ms 1 rank, {kind}: loop "
+            f"{m[kind]['loop_ms_per_step']:.3f} ms per step at 20 steps; "
+            f"all-reduce of {m[kind]['allreduce']['values']} f32 alone "
+            f"{m[kind]['allreduce']['events_ms']:.4f} ms (events), "
+            f"{m[kind]['allreduce']['device_ms']:.4f} ms busy")
+    out["mesh_step_ms"] = m
+    log(f"tools.mesh_step_ms 1-rank point: {json.dumps(m)}")
     return out
 
 
@@ -3223,11 +3438,22 @@ def main() -> int:
     tet_graph_launches = {k: {"per_capture": tet_graphs["headline"][
         "launches_per_capture"][k], "replays": tet_graphs["headline"][
         "replays"]} for k in TET_GRAPH_KERNELS}
+    t_new = time.perf_counter()
+    mesh_graphs = mesh_graph_phases()
+    log(f"phase 30 (sharded step capture over NCCL) took "
+        f"{time.perf_counter() - t_new:.1f} s; the script "
+        f"{time.perf_counter() - t_main:.1f} s until here")
+    mesh_launches = {k: {kind: {"per_capture": mesh_graphs[kind][
+        "launches_per_capture"][k], "replays": mesh_graphs[kind]["replays"]}
+        for kind in ("tri", "tet") if k in MESH_GRAPH_KERNELS[kind]}
+        for k in (*TRI_GRAPH_KERNELS, *TET_GRAPH_KERNELS)}
     sharded = {k: v for kind in ("tri", "tet")
                for k, v in multi_view[kind]["launches_per_rank_step"].items()}
     for entry in (*tet_kernels, k5_entry):
         entry["launches_sharded_per_rank_step"] = sharded[entry["name"]]
         entry["launches_captured_tet_step"] = tet_graph_launches[
+            entry["name"]]
+        entry["launches_captured_sharded_step"] = mesh_launches[
             entry["name"]]
 
     common = {"route": "cuda"}
@@ -3239,6 +3465,8 @@ def main() -> int:
          "launches_serving_path": fwd_launches,
          "launches_sharded_per_rank_step": sharded["tri_fwd_composite"],
          "launches_captured_step": graph_launches["tri_fwd_composite"],
+         "launches_captured_sharded_step": mesh_launches[
+             "tri_fwd_composite"],
          "max_abs_err": max(err_small, err_head),
          "ms": k1_ms, "device_ms": k1_dev_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -3254,6 +3482,8 @@ def main() -> int:
          "launches": launches["tri_bwd_composite"],
          "launches_sharded_per_rank_step": sharded["tri_bwd_composite"],
          "launches_captured_step": graph_launches["tri_bwd_composite"],
+         "launches_captured_sharded_step": mesh_launches[
+             "tri_bwd_composite"],
          "max_abs_err": max(k2_err_s, k2_err_h),
          "ms": k2_ms, "device_ms": k2_dev_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
@@ -3272,6 +3502,7 @@ def main() -> int:
          "launches_tet_train": tet_train_info["tet_seg_sum_launches"],
          "launches_captured_step": graph_launches["seg_sum"],
          "launches_captured_tet_step": tet_graph_launches["seg_sum"],
+         "launches_captured_sharded_step": mesh_launches["seg_sum"],
          "launches_sharded_per_rank_step": {
              k: multi_view[k]["seg_sum_per_rank_step"]
              for k in ("tri", "tet")},
@@ -3293,7 +3524,7 @@ def main() -> int:
         "diagnostics": diag, "launch_path_split_us": split_us,
         "multi_view": multi_view, "checkpoint": ckpt, "examples": examples,
         "fuzz": fuzz, "dispatch_ladder": ladder, "step_capture": graphs,
-        "tet_step_capture": tet_graphs,
+        "tet_step_capture": tet_graphs, "mesh_step_capture": mesh_graphs,
         "experiments": {k: _jsonable(v) for k, v in answers.items()}}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))

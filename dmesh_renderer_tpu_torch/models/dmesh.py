@@ -34,8 +34,7 @@ capturable=True)``); a step whose optimiser is not raises on the card. A
 batch of other shapes captures graphs of its own, as ``jit`` retraces; an
 optimiser whose state tensors were replaced (``opt.load_state_dict``, a
 checkpoint restore) or a new optimiser takes an eager step and captures
-again. ``mesh=`` steps (their all-reduce goes through the host), the dense
-tri oracle, and the CPU stay eager.
+again. The dense tri oracle and the CPU stay eager.
 
 Multi-view training (``mesh=``, a ``parallel.make_view_mesh`` mesh): each
 rank renders its own views (``parallel.shard_view_batch``) with its own copy
@@ -44,6 +43,22 @@ gradients of the view-shared parameters and the loss pieces are summed over
 the ranks by one all-reduce of one flat buffer per step, as the JAX
 package's ``shard_map`` steps do with ``pmean`` (tri) and ``psum`` (tet).
 Every rank then takes the same optimiser step on the same bits.
+
+A mesh whose collective a graph can hold (``parallel.graph_capturable``:
+NCCL, one rank per card) is captured as a step without one is: the
+all-reduce sits inside the tri graph and inside G1, enqueued in the
+capturing stream's order (torch's NCCL all-reduce joins its own stream to
+the capture by events). The tet step's flag is one more scalar of the
+flat buffer, so every rank reads the same sum and a step that overflowed
+on any rank is redone eagerly on every rank, whose eager all-reduce they
+all join. Each rank decides eager, capture or replay from the batch's
+shapes and the state's fingerprint alone, which agree on every rank when
+every rank passes the same kind of state (a restore happens on all ranks
+together); the eager first call per batch shape also makes the NCCL
+communicator, which must exist before a capture. A gloo mesh stays eager
+on every step: its all-reduce runs on the host through a CPU copy, which
+no graph can hold (ranks that share a card take gloo,
+``parallel.default_backend``).
 """
 
 from __future__ import annotations
@@ -56,7 +71,7 @@ from ..ops import tet as tet_ops
 from ..ops.tet import render_tet_core
 from ..ops.binning import default_key_capacity, warn_if_overflow
 from ..ops.tri import render_tri_auto, tri_strategy
-from ..parallel.sharding import ViewMesh, all_reduce
+from ..parallel.sharding import ViewMesh, all_reduce, graph_capturable
 
 
 class TriScene(NamedTuple):
@@ -92,24 +107,26 @@ def _check_mesh(mesh):
 
 def _sum_over_views(mesh: ViewMesh | None, params, scalars, denom):
     """The flat buffer [every param's gradient, *scalars], summed over the
-    mesh by one all-reduce (no collective without a mesh), divided by
-    ``denom(summed buffer)``: the divided gradients go into ``.grad``, and
-    the first divided scalar (the loss) is returned, copied out of the
-    buffer so that it does not keep the gradients alive. One collective of
-    one buffer keeps the sum's order fixed, every rank's bits equal and the
-    host cost of a step to one call."""
+    mesh by one all-reduce (no collective without a mesh). The gradients
+    and the first scalar (the loss) are then divided in place by
+    ``denom(summed buffer)`` and the gradients go into ``.grad``. Returns
+    the divided loss, copied out of the buffer so that it does not keep the
+    gradients alive, and the sums of the other scalars (a view of the
+    buffer). One collective of one buffer keeps the sum's order fixed,
+    every rank's bits equal and the host cost of a step to one call."""
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads]
                      + [s.detach().reshape(1) for s in scalars])
     if mesh is not None:
         flat = all_reduce(mesh, flat)
-    flat = flat / denom(flat)
+    n = flat.numel() - len(scalars)
+    flat[:n + 1].div_(denom(flat))
     off = 0
     for p in params:
         p.grad = flat[off:off + p.numel()].view_as(p)
         off += p.numel()
-    return flat[off].clone()
+    return flat[n].clone(), flat[n + 1:]
 
 
 def render_views(scene: TriScene, faces, batch: ViewBatch, bg, height: int,
@@ -157,7 +174,12 @@ def _require_capturable(opt: torch.optim.Optimizer, builder: str) -> None:
 def _fingerprint(state: TrainState) -> tuple:
     """What a captured step bakes in besides the batch: the optimiser, its
     hyperparameters and the addresses of the scene's tensors and of the
-    optimiser's state tensors."""
+    optimiser's state tensors. A step keeps the optimiser that each
+    fingerprint was taken of (``_Graph.opt``, ``_CapturedStep._warm``), so
+    that no other object takes its id or its tensors' addresses: the
+    fingerprint then changes exactly when the caller passes another
+    optimiser or one whose state tensors were replaced, which on a mesh
+    every rank does together."""
     opt = state.opt_state
     out = [id(opt), *(p.data_ptr() for p in state.scene)]
     for g in opt.param_groups:
@@ -175,10 +197,12 @@ class _Graph(NamedTuple):
     """One captured train step and its static tensors."""
     graphs: tuple           # torch.cuda.CUDAGraph: the step, or G1 and G2
     fingerprint: tuple      # ``_fingerprint`` of the state it was taken on
+    opt: Any                # that state's optimiser, kept (``_fingerprint``)
     batch: Any              # the static inputs each call copies into
     loss: torch.Tensor      # [] the step's loss, rewritten by each replay
     aux: tuple              # (overflow bool[], num_rendered int64[])
-    flag: Any               # G1's record overflow flag (split steps), or None
+    flag: Any               # G1's record overflow flag, f32[] summed over
+                            # the mesh (split steps), or None
     grads: tuple            # the gradients G1 writes and G2 reads
 
 
@@ -193,9 +217,9 @@ class _CapturedStep:
 
     A subclass passes the host-given tensors (``consts``, moved to each
     device once) and gives ``_grads`` (zero_grad, the forward, the backward
-    and the gradients' reduction over a mesh), ``_captured`` (whether a
-    step runs as graphs) and, for a split step, ``_flag`` (G1's overflow
-    flag)."""
+    and the gradients' reduction over a mesh; a split step's also returns
+    its overflow flag) and ``_captured`` (whether a step runs as
+    graphs)."""
 
     builder = ""           # the public builder's name, for messages
     split = False          # G1 (gradients) and G2 (``opt.step()``)
@@ -214,7 +238,8 @@ class _CapturedStep:
         self._host_consts = consts
         self._consts: dict = {}   # device -> consts on it
         self._streams: dict = {}  # device -> the side stream of captures
-        self._warm: dict = {}     # shape key -> fingerprint after warm-up
+        self._warm: dict = {}     # shape key -> (fingerprint, optimiser)
+                                  # after the warm-up
         self._graphs: dict = {}   # shape key -> _Graph
 
     def __call__(self, state: TrainState, batch):
@@ -257,7 +282,7 @@ class _CapturedStep:
         return c
 
     def _eager(self, state: TrainState, batch, warn: bool):
-        loss, aux = self._grads(state, batch, warn)
+        loss, aux, _flag = self._grads(state, batch, warn)
         state.opt_state.step()
         return loss, aux
 
@@ -274,15 +299,17 @@ class _CapturedStep:
         fp = _fingerprint(state)
         g = self._graphs.get(key)
         if g is None or g.fingerprint != fp:
-            if self._warm.get(key) != fp:
+            if self._warm.get(key, (None,))[0] != fp:
                 # an ordinary eager step, on the stream that will capture
+                # (on a mesh its all-reduce also makes the communicator
+                # before any capture)
                 self._graphs.pop(key, None)
                 side = self._side_stream(dev)
                 side.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(side):
                     loss, aux = self._eager(state, batch, warn)
                 torch.cuda.current_stream(dev).wait_stream(side)
-                self._warm[key] = _fingerprint(state)
+                self._warm[key] = (_fingerprint(state), state.opt_state)
                 return loss, aux, False
             g = self._graphs[key] = self._capture(state, batch, fp, dev)
         for static, t in zip(g.batch, batch):
@@ -290,7 +317,7 @@ class _CapturedStep:
                 static.copy_(t)
         g.graphs[0].replay()
         if g.flag is not None:
-            if bool(g.flag):  # the split step's one host read (1 byte)
+            if bool(g.flag):  # the split step's one host read (4 bytes)
                 return (*self._fallback(state, batch, g, warn), False)
             g.graphs[1].replay()
         self.replays += 1
@@ -308,6 +335,11 @@ class _CapturedStep:
                 static.copy_(p.grad)
                 p.grad = static
         return loss, aux
+
+    def _graphable_mesh(self) -> bool:
+        """No mesh, or one whose all-reduce a graph can hold (module
+        docstring)."""
+        return self.mesh is None or graph_capturable(self.mesh)
 
     def _side_stream(self, dev):
         s = self._streams.get(dev)
@@ -328,8 +360,7 @@ class _CapturedStep:
         flag, graphs = None, (g1,)
         with torch.cuda.graph(g1, stream=side):
             if self.split:
-                loss, aux = self._grads(state, static, warn=False)
-                flag = self._flag()
+                loss, aux, flag = self._grads(state, static, warn=False)
             else:
                 loss, aux = self._eager(state, static, warn=False)
         if self.split:
@@ -338,15 +369,15 @@ class _CapturedStep:
                 state.opt_state.step()
             graphs = (g1, g2)
         self.captures += 1
-        return _Graph(graphs, fp, static, loss, aux, flag,
+        return _Graph(graphs, fp, state.opt_state, static, loss, aux, flag,
                       tuple(p.grad for p in state.scene))
 
 
 class TrainStep(_CapturedStep):
     """The tri train step: one render, the loss, its five-gradient backward
     and one optimiser step on ``state.scene`` (``_CapturedStep``). On the
-    card (``mesh=None``, the binned path, ``capture=True``) the whole step
-    is one CUDA graph (module docstring)."""
+    card (no mesh or an NCCL one, the binned path, ``capture=True``) the
+    whole step is one CUDA graph (module docstring)."""
 
     builder = "make_train_step"
     overflow_context = ("render_tri_binned; raise "
@@ -360,17 +391,18 @@ class TrainStep(_CapturedStep):
 
     def _captured(self, state: TrainState, batch: ViewBatch) -> bool:
         """Whether this step runs as a CUDA graph: on the card, without a
-        mesh, on the binned path."""
+        mesh or with an NCCL one, on the binned path."""
         scene = state.scene
         dev = scene.verts.device
-        return (self.capture and self.mesh is None and dev.type == "cuda"
+        return (self.capture and dev.type == "cuda" and self._graphable_mesh()
                 and tri_strategy(scene.verts.shape[0],
                                  self._host_consts[0].shape[0], dev,
                                  self.force) == "binned")
 
     def _grads(self, state: TrainState, batch: ViewBatch, warn: bool):
-        """zero_grad, the loss and its backward: (loss, and on the binned
-        path its (overflow, num_rendered))."""
+        """zero_grad, the loss and its backward, the loss and the gradients
+        averaged over a mesh: (loss, on the binned path its (overflow,
+        num_rendered), None)."""
         state.opt_state.zero_grad(set_to_none=True)
         scene = state.scene
         faces, bg = self._constants(scene.verts.device)
@@ -383,9 +415,9 @@ class TrainStep(_CapturedStep):
         loss.backward()
         loss = loss.detach()
         if self.mesh is not None:
-            loss = _sum_over_views(self.mesh, list(scene), [loss],
-                                   lambda flat: self.mesh.size)
-        return loss, out[2] if binned else None
+            loss, _ = _sum_over_views(self.mesh, list(scene), [loss],
+                                      lambda flat: self.mesh.size)
+        return loss, out[2] if binned else None, None
 
 
 def make_train_step(faces, bg, height: int, width: int, mesh=None,
@@ -395,12 +427,15 @@ def make_train_step(faces, bg, height: int, width: int, mesh=None,
     five-gradient backward and one optimiser step on ``state.scene``.
     ``loss`` is detached.
 
-    On the card (``mesh=None``, the binned path) the step is captured as
-    a CUDA graph from its second call on and replayed (``TrainStep``; the
-    optimiser must be capturable); ``capture=False`` keeps every step
-    eager. With ``mesh``, ``batch`` is this rank's views: the loss is each
-    rank's mean over its views, and the loss and the gradients are
-    averaged over the ranks (JAX's ``pmean``) before the step."""
+    On the card (the binned path) the step is captured as a CUDA graph
+    from its second call on and replayed (``TrainStep``; the optimiser must
+    be capturable); ``capture=False`` keeps every step eager. With
+    ``mesh``, ``batch`` is this rank's views: the loss is each rank's mean
+    over its views, and the loss and the gradients are averaged over the
+    ranks (JAX's ``pmean``) before the step. An NCCL mesh (one rank per
+    card) is captured with its all-reduce inside the graph; a gloo mesh
+    stays eager, because its all-reduce runs on the host (module
+    docstring)."""
     return TrainStep(faces, bg, height, width, mesh=mesh, force=force,
                      kcap=kcap, capture=capture)
 
@@ -409,9 +444,10 @@ def make_train_loop(faces, bg, height: int, width: int, n_steps: int,
                     mesh=None, force: str | None = None,
                     kcap: int | None = None, capture: bool = True):
     """``loop(state, batch) -> (state, losses [n_steps])``: ``n_steps``
-    train steps on the same batch. On the card (``mesh=None``, the binned
-    path) the steps replay the captured step's graph with no host read in
-    between (``TrainStep.steps``): the JAX package's ``lax.scan`` loop.
+    train steps on the same batch. On the card (the binned path, no mesh or
+    an NCCL one) the steps replay the captured step's graph with no host
+    read in between (``TrainStep.steps``): the JAX package's ``lax.scan``
+    loop. A gloo mesh's steps stay eager (``make_train_step``).
     ``loop.step`` is the ``TrainStep`` it runs."""
     step = make_train_step(faces, bg, height, width, mesh=mesh, force=force,
                            kcap=kcap, capture=capture)
@@ -488,12 +524,14 @@ def init_tet_train_state(
 class TetTrainStep(_CapturedStep):
     """The tet train step: one render, the backward of the squared error,
     the loss and the gradients divided by ``max(count, 1)`` and one
-    optimiser step (``make_tet_train_step``). On the card (``mesh=None``,
-    ``capture=True``) the step is two CUDA graphs, G1 (zero_grad, forward,
-    backward) and G2 (``opt.step()``), with the backward's record overflow
-    flag (``ops.tet.render_tet_backward.overflow``) read between them: a
-    set flag drops G1's gradients and takes the step eagerly, whose
-    backward holds every record (``fallbacks`` counts such steps)."""
+    optimiser step (``make_tet_train_step``). On the card (no mesh or an
+    NCCL one, ``capture=True``) the step is two CUDA graphs, G1 (zero_grad,
+    forward, backward, the sum over the mesh) and G2 (``opt.step()``), with
+    the backward's record overflow flag
+    (``ops.tet.render_tet_backward.overflow``), summed over the mesh in the
+    gradients' buffer, read between them: a set flag on any rank drops G1's
+    gradients and takes the step eagerly on every rank, whose backward
+    holds every record (``fallbacks`` counts such steps)."""
 
     builder = "make_tet_train_step"
     split = True
@@ -508,14 +546,18 @@ class TetTrainStep(_CapturedStep):
 
     def _captured(self, state: TrainState, batch: TetViewBatch) -> bool:
         """Whether this step runs as CUDA graphs: on the card, without a
-        mesh."""
-        return (self.capture and self.mesh is None
+        mesh or with an NCCL one."""
+        return (self.capture and self._graphable_mesh()
                 and state.scene.verts_color.device.type == "cuda")
 
     def _grads(self, state: TrainState, batch: TetViewBatch, warn: bool):
         """zero_grad, the squared error's backward, and the loss and the
         gradients divided by the (global) ``max(count, 1)``: (loss, the first
-        hit's (overflow, num_rendered)). The tet forward warns on its own
+        hit's (overflow, num_rendered), the backward's record overflow flag
+        summed over the mesh as f32[]). The flag is the flat buffer's last
+        scalar, after the squared error and the count, so that one
+        all-reduce gives every rank the same sum (the sum of 0/1 values is
+        exact in f32 up to 2^24 ranks). The tet forward warns on its own
         (``warn`` is unused)."""
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
@@ -525,14 +567,14 @@ class TetTrainStep(_CapturedStep):
         se_fn = make_tet_se_fn(TetGeometry(*geom), bg, self.height,
                                self.width, self.seed)
         se, cnt, aux = se_fn(state.scene, batch, offset, with_aux=True)
+        tet_ops.render_tet_backward.overflow = None
         se.backward()
-        loss = _sum_over_views(self.mesh, list(state.scene), [se, cnt],
-                               lambda flat: torch.clamp_min(flat[-1], 1.0))
-        return loss, aux
-
-    def _flag(self):
-        """The record overflow flag of the backward just run."""
-        return tet_ops.render_tet_backward.overflow
+        flag = tet_ops.render_tet_backward.overflow  # None: empty geometry
+        flag = se.new_zeros(()) if flag is None else flag.to(se.dtype)
+        loss, sums = _sum_over_views(
+            self.mesh, list(state.scene), [se, cnt, flag],
+            lambda flat: torch.clamp_min(flat[-2], 1.0))
+        return loss, aux, sums[1]
 
 
 def make_tet_train_step(geom: TetGeometry, bg, height: int, width: int,
@@ -544,15 +586,20 @@ def make_tet_train_step(geom: TetGeometry, bg, height: int, width: int,
     ``_tet_normalize`` does it), and one optimiser step on
     ``state.scene``. ``loss`` is detached.
 
-    On the card (``mesh=None``) the step is kept on the device as two CUDA
-    graphs from its second call on (``TetTrainStep``; the optimiser must be
-    capturable); ``capture=False`` keeps every step eager.
+    On the card the step is kept on the device as two CUDA graphs from its
+    second call on (``TetTrainStep``; the optimiser must be capturable);
+    ``capture=False`` keeps every step eager.
 
     With ``mesh``, ``batch`` is this rank's views, whose jitter (``seed`` >
     0) is keyed by their global view index; the squared error, the count
     and the gradients are summed over the ranks before the division by the
     global ``max(count, 1)`` (JAX's ``psum``): per-view active counts
-    differ, so a mean of per-rank means would not be the global one."""
+    differ, so a mean of per-rank means would not be the global one. An
+    NCCL mesh (one rank per card) is captured with its all-reduce inside
+    G1, and the record overflow flag is summed with the gradients, so that
+    a step that overflowed on any rank is redone on every rank; a gloo mesh
+    stays eager, because its all-reduce runs on the host (module
+    docstring)."""
     return TetTrainStep(geom, bg, height, width, mesh=mesh, seed=seed,
                         capture=capture)
 
@@ -561,11 +608,12 @@ def make_tet_train_loop(geom: TetGeometry, bg, height: int, width: int,
                         n_steps: int, mesh=None, seed: int = 0,
                         capture: bool = True):
     """``loop(state, batch) -> (state, losses [n_steps])``: ``n_steps``
-    tet train steps on the same batch. On the card (``mesh=None``) the
-    steps replay the captured step's graphs with the losses kept on the
-    device and read once at the end (``TetTrainStep.steps``): the JAX
-    package's ``lax.scan`` loop. ``loop.step`` is the ``TetTrainStep`` it
-    runs."""
+    tet train steps on the same batch. On the card (no mesh or an NCCL one)
+    the steps replay the captured step's graphs with the losses kept on the
+    device and read once at the end (``TetTrainStep.steps``; each step
+    still reads its flag): the JAX package's ``lax.scan`` loop. A gloo
+    mesh's steps stay eager (``make_tet_train_step``). ``loop.step`` is the
+    ``TetTrainStep`` it runs."""
     step = make_tet_train_step(geom, bg, height, width, mesh=mesh, seed=seed,
                                capture=capture)
 

@@ -7,11 +7,12 @@ from .sharding import (
     ViewMesh,
     all_reduce,
     barrier,
+    graph_capturable,
     make_view_mesh,
     replicate_params,
     shard_view_batch,
 )
 
 __all__ = ["VIEW_AXIS", "ViewMesh", "all_reduce", "barrier",
-           "default_backend", "make_view_mesh", "replicate_params",
-           "shard_view_batch", "spawn"]
+           "default_backend", "graph_capturable", "make_view_mesh",
+           "replicate_params", "shard_view_batch", "spawn"]

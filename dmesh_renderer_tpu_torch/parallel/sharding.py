@@ -30,6 +30,10 @@ with ``all_reduce(mesh, x, dist.ReduceOp.MAX)`` to see it on every rank.
 Over gloo, the collectives here copy a CUDA tensor to the CPU and back:
 gloo's collectives run on the host, and NCCL will not put two ranks on one
 card, so ranks that share a card use gloo (``launch.default_backend``).
+Over NCCL (one rank per card) they run in place on the card tensor, with no
+host copy and no host read, so a CUDA graph can capture them
+(``graph_capturable``); the train steps of ``models/dmesh.py`` then capture
+the all-reduce with the rest of the step.
 """
 
 from __future__ import annotations
@@ -95,6 +99,15 @@ def make_view_mesh(n_devices: int | None = None, group=None,
         # NCCL and the kernels' launches take the current device
         torch.cuda.set_device(device)
     return ViewMesh(group, rank, size, device)
+
+
+def graph_capturable(mesh: ViewMesh) -> bool:
+    """Whether a CUDA graph can capture this mesh's collectives: the mesh's
+    device is a card and its group's backend is NCCL, whose collectives are
+    device work on the card tensor. gloo's run on the host (a CUDA tensor
+    goes through a CPU copy), which no graph can hold."""
+    return (mesh.device.type == "cuda"
+            and dist.get_backend(mesh.group) == "nccl")
 
 
 def _host_collective(mesh: ViewMesh, tensor: torch.Tensor, collective):

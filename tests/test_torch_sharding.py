@@ -176,6 +176,11 @@ def tri_rank():
     out["loop_losses"] = losses.tolist()
     out["loop_digest"] = digest(st.scene)
 
+    # a gloo mesh on the CPU is never captured
+    out["captured"] = [parallel.graph_capturable(mesh),
+                       step._captured(st, batch), loop.step._captured(
+                           st, batch)]
+
     # view_params pass through the sharded step unchanged
     st = _tri_state(scene, _sgd, mesh)
     vp = (batch.verts_depth, batch.faces_intense)
@@ -254,8 +259,21 @@ def tet_rank():
     out["loop_losses"] = losses.tolist()
     out["loop_digest"] = digest(st.scene)
     step = tdm.make_tet_train_step(geom, bg, H, W, mesh=mesh)
-    out["adam_step_loss"] = float(step(_tet_state(scene, _adam, mesh),
-                                       batch)[1])
+    st = _tet_state(scene, _adam, mesh)
+    out["adam_step_loss"] = float(step(st, batch)[1])
+    out["captured"] = [step._captured(st, batch),
+                       loop.step._captured(st, batch)]
+
+    # the record overflow flag rides in the summed buffer after the squared
+    # error and the count: rank 0's flag reaches every rank
+    p = torch.zeros(3, requires_grad=True)
+    p.grad = torch.full((3,), float(mesh.rank + 1))
+    loss, sums = tdm._sum_over_views(
+        mesh, [p], [torch.tensor(2.0), torch.tensor(4.0),
+                    torch.tensor(float(mesh.rank == 0))],
+        lambda flat: torch.clamp_min(flat[-2], 1.0))
+    out["summed_flag"] = {"loss": float(loss), "sums": sums.tolist(),
+                          "grad": p.grad.tolist()}
     return out
 
 
@@ -439,6 +457,28 @@ def test_make_view_mesh_errors(tri_runs):
             assert "no CUDA device is available" in r["no_card"]
 
 
+def test_gloo_mesh_stays_eager(tri_runs, tet_runs):
+    """A gloo mesh on the CPU is not one whose all-reduce a CUDA graph can
+    hold: its steps and loops stay eager."""
+    for r in tri_runs:
+        assert r["captured"] == [False, False, False]
+    for r in tet_runs:
+        assert r["captured"] == [False, False]
+
+
+def test_graph_capturable_predicate(monkeypatch):
+    """``parallel.graph_capturable`` on stub meshes: NCCL on a card yes;
+    gloo on a card no; the CPU no, whatever the backend."""
+    backend = {}
+    monkeypatch.setattr(dist, "get_backend", lambda group: backend["name"])
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    for name, dev, want in (("nccl", card, True), ("gloo", card, False),
+                            ("gloo", cpu, False), ("nccl", cpu, False)):
+        backend["name"] = name
+        assert parallel.graph_capturable(
+            parallel.ViewMesh(object(), 0, 2, dev)) is want
+
+
 @pytest.mark.parametrize("kind", ["tri", "tet"])
 def test_step_loss_holds_no_gradients(tri_runs, tet_runs, kind):
     """The loss a step returns, sharded or not, is a scalar of its own: it
@@ -499,6 +539,17 @@ def test_tet_sharded_fallback_with_jitter_matches(tet_runs, monkeypatch):
 
     monkeypatch.setattr(jtet, "LOG_CAP", 2)
     _check_against_jax(tet_runs[0]["sgd_3"], *jax_tet_sharded(3))
+
+
+def test_summed_overflow_flag(tet_runs):
+    """The tet step's record overflow flag is the last scalar of the flat
+    buffer: rank 0 flags (1) and rank 1 does not (0), and both read back 1,
+    so both redo the step; the count beside it and the gradients are
+    summed, and the gradients and the loss divided by the count."""
+    for r in tet_runs:
+        f = r["summed_flag"]
+        assert f["sums"] == [8.0, 1.0]
+        assert f["loss"] == 0.5 and f["grad"] == [0.375] * 3
 
 
 def test_tet_train_loop(tet_runs):
