@@ -11,6 +11,13 @@ ctypes. A build that fails raises: there is no fallback.
 
 ``--fmad=false`` keeps nvcc from contracting a*b+c into FMAs, so that the
 kernels round as their plain torch versions do.
+
+``csrc/spans.cu`` holds ``span_mark``, the one-thread kernel of the train
+steps' stage marks (``utils/spans.py``): it appends (span id, step index,
+``%globaltimer`` ns, counter) to a ring on the device, and is launched only
+while spans are on (``utils.diagnostics.enable_spans``). With spans on,
+``load`` and ``build`` also keep a host span, ``kernels.build``: the build
+check, any compile and the library's load.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from .utils import spans
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -44,6 +53,7 @@ SIGNATURES = {
     "march_probe": {"mega_step": [_P] * 5 + [_I] * 2 + [_P],
                     "two_table_step": [_P] * 7 + [_I] * 3 + [_P],
                     "proto_step": [_P] * 7 + [_I] * 3 + [_P]},
+    "spans": {"span_mark": [_P] * 3 + [_I] * 4 + [_P]},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -79,6 +89,11 @@ def build(names=None, extra_flags=()) -> dict[str, str]:
     """Compile the named kernels (default: all) that are missing or older
     than their source, one nvcc process per source, all started together.
     Returns each compiler's output. Raises if any build fails."""
+    with spans.host_block("kernels.build"):
+        return _build(names, extra_flags)
+
+
+def _build(names, extra_flags) -> dict[str, str]:
     names = list(SIGNATURES) if names is None else list(names)
     todo = [n for n in names if _stale(n)]
     if not todo:
@@ -112,11 +127,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_paths(name)[1]))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+        with spans.host_block("kernels.build"):
+            _build([name], ())
+            lib = ctypes.CDLL(str(_paths(name)[1]))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 

@@ -72,6 +72,7 @@ from ..ops.tet import render_tet_core
 from ..ops.binning import default_key_capacity, warn_if_overflow
 from ..ops.tri import render_tri_auto, tri_strategy
 from ..parallel.sharding import ViewMesh, all_reduce, graph_capturable
+from ..utils import spans
 
 
 class TriScene(NamedTuple):
@@ -173,15 +174,17 @@ def _require_capturable(opt: torch.optim.Optimizer, builder: str) -> None:
 
 def _fingerprint(state: TrainState) -> tuple:
     """What a captured step bakes in besides the batch: the optimiser, its
-    hyperparameters and the addresses of the scene's tensors and of the
-    optimiser's state tensors. A step keeps the optimiser that each
-    fingerprint was taken of (``_Graph.opt``, ``_CapturedStep._warm``), so
-    that no other object takes its id or its tensors' addresses: the
-    fingerprint then changes exactly when the caller passes another
-    optimiser or one whose state tensors were replaced, which on a mesh
-    every rank does together."""
+    hyperparameters, the addresses of the scene's tensors and of the
+    optimiser's state tensors, and the spans' switch (``spans.fingerprint``:
+    a graph holds stage marks exactly when spans were on as it was taken,
+    so turning them on or off takes an eager step and a capture again). A
+    step keeps the optimiser that each fingerprint was taken of
+    (``_Graph.opt``, ``_CapturedStep._warm``), so that no other object
+    takes its id or its tensors' addresses: the fingerprint then changes
+    exactly when the caller passes another optimiser or one whose state
+    tensors were replaced, which on a mesh every rank does together."""
     opt = state.opt_state
-    out = [id(opt), *(p.data_ptr() for p in state.scene)]
+    out = [id(opt), spans.fingerprint(), *(p.data_ptr() for p in state.scene)]
     for g in opt.param_groups:
         out.append(tuple((k, ("tensor", v.data_ptr())
                           if isinstance(v, torch.Tensor) else v)
@@ -219,7 +222,18 @@ class _CapturedStep:
     device once) and gives ``_grads`` (zero_grad, the forward, the backward
     and the gradients' reduction over a mesh; a split step's also returns
     its overflow flag) and ``_captured`` (whether a step runs as
-    graphs)."""
+    graphs).
+
+    Spans (``utils.diagnostics.enable_spans``; off by default): a step
+    runs inside ``spans.in_step``, opens with the mark ``step.open``,
+    closes ``step.grads`` after ``_grads`` and ``step.optimizer`` after
+    ``opt.step()``; a split step's G2 opens with ``step.resume``. The ops
+    mark the stages between (``utils/spans.py`` lists them). Captured, the
+    marks are graph nodes, so each replay stamps its stages on the device's
+    clock with no host work. ``_run`` keeps the host spans ``step.eager``,
+    ``step.capture``, ``step.replay`` (the batch copies and the graph
+    launches), ``step.flag_read`` and ``step.fallback``; with spans off it
+    tests one boolean per span site."""
 
     builder = ""           # the public builder's name, for messages
     split = False          # G1 (gradients) and G2 (``opt.step()``)
@@ -281,19 +295,41 @@ class _CapturedStep:
                                           for x in self._host_consts)
         return c
 
-    def _eager(self, state: TrainState, batch, warn: bool):
-        loss, aux, _flag = self._grads(state, batch, warn)
+    def _marked_grads(self, state: TrainState, batch, warn: bool):
+        """``_grads`` between the marks that open the step and close
+        ``step.grads``."""
+        spans.mark("step.open")
+        out = self._grads(state, batch, warn)
+        spans.mark("step.grads")
+        return out
+
+    def _marked_opt_step(self, state: TrainState, resume: bool) -> None:
+        """``opt.step()``, closed by the mark ``step.optimizer`` (opened by
+        ``step.resume`` in a split step's G2)."""
+        if resume:
+            spans.mark("step.resume")
         state.opt_state.step()
+        spans.mark("step.optimizer")
+
+    def _eager(self, state: TrainState, batch, warn: bool):
+        with spans.in_step(state.scene[0].device):
+            loss, aux, _flag = self._marked_grads(state, batch, warn)
+            self._marked_opt_step(state, False)
         return loss, aux
 
     def _run(self, state: TrainState, batch, warn: bool):
         """One step: (loss, aux, replayed). After a replay the loss and
         the aux are the graph's static tensors, which the next replay
         rewrites."""
-        if not self._captured(state, batch):
-            return (*self._eager(state, batch, warn), False)
-        _require_capturable(state.opt_state, self.builder)
         dev = state.scene[0].device
+        on = spans.enabled
+        t0 = spans.host_ns() if on else 0
+        if not self._captured(state, batch):
+            out = (*self._eager(state, batch, warn), False)
+            if on:
+                spans.host_span("step.eager", t0, dev)
+            return out
+        _require_capturable(state.opt_state, self.builder)
         key = tuple((tuple(t.shape), t.dtype, t.device)
                     for t in (*state.scene, *batch))
         fp = _fingerprint(state)
@@ -310,17 +346,33 @@ class _CapturedStep:
                     loss, aux = self._eager(state, batch, warn)
                 torch.cuda.current_stream(dev).wait_stream(side)
                 self._warm[key] = (_fingerprint(state), state.opt_state)
+                if on:
+                    spans.host_span("step.eager", t0, dev)
                 return loss, aux, False
             g = self._graphs[key] = self._capture(state, batch, fp, dev)
+            if on:
+                spans.host_span("step.capture", t0, dev)
+                t0 = spans.host_ns()
         for static, t in zip(g.batch, batch):
             if static is not t:
                 static.copy_(t)
         g.graphs[0].replay()
+        if on:
+            spans.replayed(dev)
         if g.flag is not None:
-            if bool(g.flag):  # the split step's one host read (4 bytes)
-                return (*self._fallback(state, batch, g, warn), False)
+            t1 = spans.host_ns() if on else 0
+            flagged = bool(g.flag)  # the split step's one host read (4 bytes)
+            if on:
+                spans.host_span("step.flag_read", t1, dev)
+            if flagged:
+                out = (*self._fallback(state, batch, g, warn), False)
+                if on:
+                    spans.host_span("step.fallback", t0, dev)
+                return out
             g.graphs[1].replay()
         self.replays += 1
+        if on:
+            spans.host_span("step.replay", t0, dev)
         return g.loss, g.aux, True
 
     def _fallback(self, state: TrainState, batch, g: _Graph, warn: bool):
@@ -358,15 +410,17 @@ class _CapturedStep:
         side = self._side_stream(dev)
         g1 = torch.cuda.CUDAGraph()
         flag, graphs = None, (g1,)
-        with torch.cuda.graph(g1, stream=side):
+        with torch.cuda.graph(g1, stream=side), spans.in_step(dev):
             if self.split:
-                loss, aux, flag = self._grads(state, static, warn=False)
+                loss, aux, flag = self._marked_grads(state, static,
+                                                     warn=False)
             else:
                 loss, aux = self._eager(state, static, warn=False)
         if self.split:
             g2 = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g2, pool=g1.pool(), stream=side):
-                state.opt_state.step()
+            with torch.cuda.graph(g2, pool=g1.pool(), stream=side), \
+                    spans.in_step(dev):
+                self._marked_opt_step(state, True)
             graphs = (g1, g2)
         self.captures += 1
         return _Graph(graphs, fp, state.opt_state, static, loss, aux, flag,

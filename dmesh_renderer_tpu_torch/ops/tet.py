@@ -69,6 +69,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..kernels import launch
+from ..utils import spans
 from ..utils.config import BIN_TILE, DEFAULT_MAX_MARCH_STEPS, T_EPS, TILE_X
 from .binning import default_key_capacity, warn_if_overflow
 from .geometry import (
@@ -571,6 +572,7 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
         fh_aux = (torch.zeros((), dtype=torch.bool, device=dev),
                   torch.full((), -1, device=dev),
                   torch.full((), -1, device=dev))
+    spans.mark("tet.first_hit", fh_aux[1])
 
     march = march_tables(verts, faces, tets, tet_faces, face_tets,
                          verts_color, faces_opacity, faces_intense)
@@ -581,6 +583,7 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
                            face_tets, tet_faces)
     zw = projective_zw(cam_o, ray_d, mv_t, proj_t)
     tuv = torch.stack([rt.reshape(M), iu.reshape(M), iv.reshape(M)])
+    spans.mark("tet.tables")
     out_f, out_i = fwd_march(rd_flat, cam_o, zw, ff_flat, first_tet, tuv,
                              march["tet_geo"], march["tet_nrm"],
                              march["tet_ids"], march["shade"], height, width,
@@ -619,7 +622,9 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
         fh_num_rendered=fh_aux[1],
         fh_walked=fh_aux[2],
     )
-    return color.contiguous(), depth, act.reshape(B, height, width), saved
+    color = color.contiguous()
+    spans.mark("tet.k4")
+    return color, depth, act.reshape(B, height, width), saved
 
 
 # =============================================================================
@@ -861,15 +866,19 @@ def render_tet_backward(saved, faces, face_tets, bg, n_verts: int,
     ``render_tet_backward.overflow``, a 0-d bool tensor on the device: the
     records passed the capacity and the gradients miss some (only ever
     under a capture; module docstring)."""
-    ray_i, ray_f, off, n_records, _total, overflow = bwd_start_state(
+    ray_i, ray_f, off, n_records, total, overflow = bwd_start_state(
         saved, face_tets, dL_dcolor, dL_ddepth, bg)
+    spans.mark("tet.bwd_start", total)
     render_tet_backward.overflow = overflow
     m = saved["march"]
     keys, rec, _bad = bwd_march(saved["ray_d"], saved["cam_o"], saved["zw"],
                                 ray_i, ray_f, off, n_records, m["tet_geo"],
                                 m["tet_nrm"], m["tet_ids"], m["shade"],
                                 saved["last_face"].shape[1])
-    return reduce_tet_records(keys, rec, faces, n_verts)
+    spans.mark("tet.k5")
+    out = reduce_tet_records(keys, rec, faces, n_verts)
+    spans.mark("tet.reduce")
+    return out
 
 
 render_tet_backward.overflow = None
@@ -912,6 +921,7 @@ class _RenderTet(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dL_dcolor, dL_ddepth, *_nondiff):
+        spans.mark("step.loss")
         faces, face_tets, bg = ctx.saved_tensors
         need = ctx.needs_input_grad
         grads = [None] * 19

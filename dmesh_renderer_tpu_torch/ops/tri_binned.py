@@ -50,6 +50,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..kernels import launch
+from ..utils import spans
 from ..utils.config import BIN_TILE, T_EPS
 from .binning import (
     default_key_capacity,
@@ -294,7 +295,8 @@ def record_segments(slot_ids, slot_face, n_rows: int):
 
 
 def bwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d, T,
-                  prevT, n_contrib, gin, B: int, H: int, W: int):
+                  prevT, n_contrib, gin, B: int, H: int, W: int,
+                  walked=None):
     """Gradient records of the composite's walked slots (kernel K2).
 
     The first nine arguments are ``fwd_composite``'s inputs; T, prevT and
@@ -312,6 +314,8 @@ def bwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d, T,
     prefix have no row: their records would be zero. The rows from Wk on
     are not written (the plain version leaves zeros) and their slot id is
     the sentinel S (``record_segments``), so the reduce never reads them.
+    ``walked``: ``walked_slots``' (offs, total) of these inputs, where the
+    caller has them.
 
     On CUDA tensors this launches the kernel of csrc/tri_bwd.cu (and raises
     if it cannot); on CPU tensors it runs ``bwd_composite_plain``."""
@@ -326,7 +330,8 @@ def bwd_composite(starts, ends, slot_face, face_f32, face_i32, ray_d, T,
     tensors = [x.contiguous() for x in (starts, ends, slot_face, face_f32,
                                         face_i32, ray_d, T, prevT, n_contrib,
                                         gin)]
-    offs, _total = walked_slots(tensors[0], tensors[1], tensors[8], B, H, W)
+    offs = (walked_slots(tensors[0], tensors[1], tensors[8], B, H, W)
+            if walked is None else walked)[0]
     dev = ray_d.device
     cap = slot_face.numel()
     rec = torch.empty((cap, 4, REC_COLS), dtype=torch.float32, device=dev)
@@ -644,16 +649,20 @@ def _forward(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
 
     ndc, img = project_verts(verts, mv_t, proj_t, width, height)
     pre = preprocess_faces(ndc, img, faces, width, height, TILE, TILE)
+    spans.mark("tri.project")
     keys = emit_and_sort(pre, gx, gy, kcap, tile_px=TILE, run_cap=run_cap)
+    spans.mark("tri.binning", keys.total)
     face_f32, face_i32 = build_face_table(
         verts, faces, verts_color, faces_opacity, verts_depth, faces_intense,
         img, inv_mv_t[:, 3, :3])
     _ray_o, ray_d = generate_rays(inv_mv_t, inv_proj_t, width, height)
     inputs = (keys.starts, keys.ends, keys.slot_face, face_f32[keys.sigma],
               face_i32[keys.sigma], ray_d, B, height, width)
+    spans.mark("tri.prep")
     C, D, T, pT, nc = fwd_composite(*inputs)
     color = C + T[:, None] * bg[None, :, None, None]
     depth = (D + T * 1.0)[:, None]
+    spans.mark("tri.k1")
     return color, depth, keys, inputs, (T, pT, nc)
 
 
@@ -682,15 +691,19 @@ class _RenderTriBinned(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dL_dcolor, dL_ddepth, _d_overflow, _d_total):
+        spans.mark("step.loss")
         (starts, ends, slot_face, ff, fi, ray_d, T, pT, nc, sigma, faces,
          faces_intense, bg) = ctx.saved_tensors
         B, H, W = T.shape
-        rec, slot_ids = bwd_composite(
-            starts, ends, slot_face, ff, fi, ray_d, T, pT, nc,
-            upstream_planes(dL_dcolor, dL_ddepth, bg), B, H, W)
+        gin = upstream_planes(dL_dcolor, dL_ddepth, bg)
+        walked = walked_slots(starts, ends, nc, B, H, W)
+        rec, slot_ids = bwd_composite(starts, ends, slot_face, ff, fi, ray_d,
+                                      T, pT, nc, gin, B, H, W, walked)
+        spans.mark("tri.k2", walked[1])
         g_verts, g_vcolor, g_fop, g_vdepth, g_fint = reduce_records(
             rec, slot_ids, slot_face, sigma, ff, faces, faces_intense,
             ctx.n_verts)
+        spans.mark("tri.reduce")
         return (g_verts, None, g_vcolor, g_fop, None, None, None, None,
                 g_vdepth, g_fint, None, None, None, None, None)
 

@@ -22,13 +22,17 @@ emission (``emit_and_sort(sort_by="min_depth")``), the record CSR
 with the pair count, the key capacity, the records and the record
 capacity.
 
+``--stages`` reports instead the captured train step's device time by
+stage (``tri_step_ms.stage_kernels``).
+
 ``--root`` imports the package from another checkout (by default the one
 holding this script); a package without captured tet steps reports the
 eager numbers only. One card then compares two versions in one call
 (parent, change, change, parent):
 
     python dmesh_renderer_tpu_torch/tools/tet_step_ms.py [--root DIR] \\
-        [--reps N] [--loop-steps N] [--grid G] [--size S] [--views B]
+        [--reps N] [--loop-steps N] [--grid G] [--size S] [--views B] \\
+        [--stages]
 
 Prints one JSON line. Needs the card.
 """
@@ -95,7 +99,7 @@ def stage_times(fargs, H, W):
 
 
 def run(port_root: str, reps: int, loop_steps: int, grid: int, S: int,
-        views: int = 1):
+        views: int = 1, stages: bool = False):
     sys.path.insert(0, str(Path(port_root).resolve()))
     import numpy as np
     import torch
@@ -103,7 +107,8 @@ def run(port_root: str, reps: int, loop_steps: int, grid: int, S: int,
     import dmesh_renderer_tpu_torch as port
     from dmesh_renderer_tpu_torch.api import _inverses
     from dmesh_renderer_tpu_torch.models import dmesh
-    from dmesh_renderer_tpu_torch.tools.tri_step_ms import measure, median_ms
+    from dmesh_renderer_tpu_torch.tools.tri_step_ms import (
+        measure, median_ms, stage_kernels)
     from dmesh_renderer_tpu_torch.utils.scenes import tet_scene
 
     if not torch.cuda.is_available():
@@ -131,6 +136,21 @@ def run(port_root: str, reps: int, loop_steps: int, grid: int, S: int,
            "tet_faces": int(user[1].shape[0]),
            "captured_steps": captures}
 
+    geom = dmesh.TetGeometry(user[0], user[1], *user[8:11])
+    batch = dmesh.TetViewBatch(*fargs[4:9], torch.zeros((views, 3, S, S),
+                                                        device=dev))
+
+    def fresh():
+        scene = dmesh.TetScene(*(x.detach().clone().requires_grad_(True)
+                                 for x in (user[2], user[3])))
+        return dmesh.init_tet_train_state(scene, lambda p: torch.optim.Adam(
+            p, lr=1e-2, capturable=True))
+
+    if stages:
+        out["by_stage"] = stage_kernels(
+            dmesh.make_tet_train_step(geom, bg, S, S), fresh(), batch)
+        return out
+
     def frame():
         with torch.no_grad():
             return renderer(*user)
@@ -142,16 +162,6 @@ def run(port_root: str, reps: int, loop_steps: int, grid: int, S: int,
         with torch.cuda.graph(g):
             frame()
         out["serve_captured"] = measure(g.replay, reps)
-
-    geom = dmesh.TetGeometry(user[0], user[1], *user[8:11])
-    batch = dmesh.TetViewBatch(*fargs[4:9], torch.zeros((views, 3, S, S),
-                                                        device=dev))
-
-    def fresh():
-        scene = dmesh.TetScene(*(x.detach().clone().requires_grad_(True)
-                                 for x in (user[2], user[3])))
-        return dmesh.init_tet_train_state(scene, lambda p: torch.optim.Adam(
-            p, lr=1e-2, capturable=True))
 
     kinds = [("step_eager", {"capture": False} if captures else {})]
     if captures:
@@ -185,8 +195,11 @@ def main(argv=None):
     ap.add_argument("--grid", type=int, default=20)
     ap.add_argument("--size", type=int, default=800)
     ap.add_argument("--views", type=int, default=1)
+    ap.add_argument("--stages", action="store_true",
+                    help="the captured train step by stage, alone")
     a = ap.parse_args(argv)
-    out = run(a.root, a.reps, a.loop_steps, a.grid, a.size, a.views)
+    out = run(a.root, a.reps, a.loop_steps, a.grid, a.size, a.views,
+              a.stages)
     print(json.dumps(out), flush=True)
     return out
 

@@ -23,13 +23,17 @@ its device busy ms under the profiler (and the binning's sort kernels
 alone) and by CUDA events around 10 calls, which also holds the time the
 device waits for the host to issue the stage's many small launches.
 
+``--stages`` reports instead the captured train step's device time by
+stage (``stage_kernels``): the step's program spans on, each stage's device
+ms a step and its largest kernels.
+
 ``--root`` imports the package from another checkout (by default the one
 holding this script); a package without captured steps reports the eager
 numbers only. One card then compares two versions in one call (parent,
 change, change, parent):
 
     python dmesh_renderer_tpu_torch/tools/tri_step_ms.py [--root DIR] \\
-        [--reps N] [--loop-steps N] [--tri-faces F] [--size S]
+        [--reps N] [--loop-steps N] [--tri-faces F] [--size S] [--stages]
 
 Prints one JSON line. Needs the card.
 """
@@ -152,6 +156,50 @@ def measure(fn, reps, warmup=WARMUP):
             "peak_mib": peak_mib(fn)}
 
 
+def stage_kernels(step, state, batch, steps=16, warm=8, top=6):
+    """The train step ``step`` by stage, with the program's spans on
+    (``utils.diagnostics.enable_spans``): ``warm`` steps from ``state`` on
+    ``batch`` (eager, capture, replays), then ``steps`` replays under
+    ``torch.profiler``. Each stage's device ms a step (its marks) and its
+    ``top`` largest kernels (launches and ms a step, placed by the mark
+    kernels around them, ``diagnostics.device_time_by_stage``), the waits
+    between graphs and between steps, the counters, and the step's
+    replays and fallbacks. Spans are off again after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmesh_renderer_tpu_torch.utils import diagnostics
+
+    diagnostics.enable_spans()
+    try:
+        for _ in range(warm):
+            state, _loss = step(state, batch)
+        _sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                state, _loss = step(state, batch)
+            _sync()
+        rep = diagnostics.span_report(steps, step=step)
+        by_stage = diagnostics.device_time_by_stage(prof, rep)
+    finally:
+        diagnostics.enable_spans(False)
+    n = rep["steps"]
+    stages = {}
+    for name in [*rep["stages"], *(k for k in by_stage
+                                   if k not in rep["stages"])]:
+        kernels = by_stage.get(name, {})
+        item = rep["stages"].get(name)
+        stages[name] = {
+            "ms": item["total_ms"] / n if item else None,
+            "kernel_ms": sum(ms for _c, ms in kernels.values()) / n,
+            "top": [[k, c / n, ms / n]
+                    for k, (c, ms) in list(kernels.items())[:top]]}
+    return {"steps": n, "stages": stages,
+            "gaps": {k: v["mean_ms"] for k, v in rep["gaps"].items()},
+            "counters": {k: v["max"] for k, v in rep["counters"].items()},
+            "replays": rep["replays"], "fallbacks": rep["fallbacks"]}
+
+
 def stage_times(fargs, H, W):
     """The binning, the record CSR and the record reduce at the headline's
     inputs: device busy ms, CUDA-event ms, and the binning's sort kernels'
@@ -195,7 +243,8 @@ def stage_times(fargs, H, W):
     return out
 
 
-def run(port_root: str, reps: int, loop_steps: int, n_tris: int, S: int):
+def run(port_root: str, reps: int, loop_steps: int, n_tris: int, S: int,
+        stages: bool = False):
     sys.path.insert(0, str(Path(port_root).resolve()))
     import numpy as np
     import torch
@@ -227,6 +276,20 @@ def run(port_root: str, reps: int, loop_steps: int, n_tris: int, S: int):
            "reps": reps, "size": S, "tri_faces": n_tris,
            "captured_steps": captures}
 
+    batch = dmesh.ViewBatch(*fargs[4:10], torch.zeros((1, 3, S, S),
+                                                      device=dev))
+
+    def fresh():
+        scene = dmesh.TriScene(*(x.detach().clone().requires_grad_(True)
+                                 for x in (user[0], user[2], user[3])))
+        return dmesh.init_train_state(scene, lambda p: torch.optim.Adam(
+            p, lr=1e-2, capturable=True))
+
+    if stages:
+        out["by_stage"] = stage_kernels(
+            dmesh.make_train_step(user[1], bg, S, S), fresh(), batch)
+        return out
+
     def frame():
         with torch.no_grad():
             return renderer(*user)
@@ -238,15 +301,6 @@ def run(port_root: str, reps: int, loop_steps: int, n_tris: int, S: int):
         with torch.cuda.graph(g):
             frame()
         out["serve_captured"] = measure(g.replay, reps)
-
-    batch = dmesh.ViewBatch(*fargs[4:10], torch.zeros((1, 3, S, S),
-                                                      device=dev))
-
-    def fresh():
-        scene = dmesh.TriScene(*(x.detach().clone().requires_grad_(True)
-                                 for x in (user[0], user[2], user[3])))
-        return dmesh.init_train_state(scene, lambda p: torch.optim.Adam(
-            p, lr=1e-2, capturable=True))
 
     kinds = [("step_eager", {"capture": False} if captures else {})]
     if captures:
@@ -278,8 +332,10 @@ def main(argv=None):
     ap.add_argument("--loop-steps", type=int, default=20)
     ap.add_argument("--tri-faces", type=int, default=100_000)
     ap.add_argument("--size", type=int, default=800)
+    ap.add_argument("--stages", action="store_true",
+                    help="the captured train step by stage, alone")
     a = ap.parse_args(argv)
-    out = run(a.root, a.reps, a.loop_steps, a.tri_faces, a.size)
+    out = run(a.root, a.reps, a.loop_steps, a.tri_faces, a.size, a.stages)
     print(json.dumps(out), flush=True)
     return out
 
