@@ -839,6 +839,85 @@ def compare_tet_kernels(fh_inputs, march_inputs, label):
     return max(err3, err4), g3, visits, g4, (eq3, eq4)
 
 
+def tet_tables_row(fargs, st, H, W):
+    """The march tables and ray starts (csrc/tet_tables.cu: ``tet_tables``,
+    ``tet_ray_start``) against the plain torch ops they replace, on the
+    inputs of a staged tet forward (``st``, through K3): every output bit
+    for bit, ms by CUDA events of the two launches and of the plain ops,
+    each kernel's device time, and the bound of the bytes each table and
+    ray moves once. Returns the kernel table's row."""
+    from dmesh_renderer_tpu_torch.ops import tet as pt
+
+    B, F, T = fargs[4].shape[0], fargs[1].shape[0], fargs[9].shape[0]
+    P, M = fargs[0].shape[0], B * H * W
+    ta = (fargs[0], fargs[1], fargs[9], fargs[11], fargs[10], fargs[2],
+          fargs[3], fargs[8])
+    cam_o = fargs[6][:, 3, :3].contiguous()
+    fh = [x.reshape(M) for x in st["fh"][:4]]
+
+    def ray_args(m):
+        return (fh[0], st["rd"].reshape(M, 3), *fh[1:], cam_o, fargs[4],
+                fargs[5], m["geo"], m["sign"], fargs[10], fargs[11])
+
+    def kernels_():
+        m = pt.march_tables(*ta)
+        return m, pt.ray_start(*ray_args(m))
+
+    def plain():
+        m = pt.march_tables_plain(*ta)
+        ra = ray_args(m)
+        return m, (pt.start_tets_plain(ra[0], ra[1], *ra[8:]),
+                   pt.projective_zw_plain(cam_o, ra[1].reshape(B, -1, 3),
+                                          fargs[4], fargs[5]),
+                   torch.stack(fh[1:]))
+
+    before = (pt.march_tables.launches, pt.ray_start.launches)
+    got = kernels_()
+    torch.cuda.synchronize()
+    launches = {"tet_tables": pt.march_tables.launches - before[0],
+                "tet_ray_start": pt.ray_start.launches - before[1]}
+    check(launches == {"tet_tables": 1, "tet_ray_start": 1},
+          f"tet tables: {launches} launches, not one of each kernel")
+    want = plain()
+    bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x
+    differ = [k for k in want[0] if not torch.equal(bits(got[0][k]),
+                                                    bits(want[0][k]))]
+    differ += [k for k, a, b in zip(("first_tet", "zw", "tuv"), got[1],
+                                    want[1]) if not torch.equal(bits(a),
+                                                                bits(b))]
+    check(not differ, f"tet tables differ from plain: {differ}")
+    ms = cuda_ms(kernels_, 2, 10)
+    plain_ms = cuda_ms(plain, 1, 5)
+    dev_ms = {
+        "tet_tables": profiled_device_ms(lambda: pt.march_tables(*ta),
+                                         "tet_tables_kernel"),
+        "tet_ray_start": profiled_device_ms(
+            lambda: pt.ray_start(*ray_args(got[0])), "tet_ray_start_kernel")}
+    # once: the tables written (geo 48, sign 16, tet_geo 160, tet_nrm 48,
+    # tet_ids 32, shade 48 a view) and their inputs (verts and colours 24 a
+    # vertex; faces 12, face_tets 8, opacity 4, intensity 4 a view; tets
+    # and tet_faces 32); per ray the first face, ray, t/u/v in (28) and the
+    # start tet, zw and t/u/v out (32). The rows each ray and tet gathers
+    # come from the L2.
+    nbytes = (P * 24 + F * (12 + 8 + 4 + 48) + B * F * (48 + 4)
+              + T * (32 + 16 + 160 + 48 + 32) + M * (28 + 32))
+    b_ms, b_by, _o, _b = bound(0, nbytes)
+    log(f"tet tables at the tet headline: {ms:.4f} ms for both launches "
+        f"(device: tet_tables {dev_ms['tet_tables']:.4f}, tet_ray_start "
+        f"{dev_ms['tet_ray_start']:.4f}); the plain torch ops {plain_ms:.4f} "
+        f"ms; {nbytes} bytes -> bound {b_ms:.4f} ms; bit-equal to plain")
+    return {"route": "cuda", "name": "tet_tables",
+            "source": "dmesh_renderer_tpu_torch/csrc/tet_tables.cu",
+            "replaces": "ops/tet.py march_tables_plain, start_tets_plain, "
+                        "projective_zw_plain and the t/u/v stack (port "
+                        "glue: ~60 torch ops and 8 gathers, not a TPU "
+                        "kernel)",
+            "kernels": list(launches), "launches": launches, "ms": ms,
+            "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "library_ms": None, "bit_equal": not differ}
+
+
 def k3_shapes(fh_inputs, walked, visits):
     """What K3's shapes do with this run's data, from the plain version's
     per-pixel visits (the faces a pixel hit-tested; one that tested fewer
@@ -1054,6 +1133,7 @@ def tet_phases(dev):
     k3_sh = k3_shapes(fh_in(), g3[4], visits)
     k4_dev_ms = profiled_device_ms(lambda: pt.fwd_march(*m_in()),
                                    "tet_fwd_march_kernel")
+    tables_row = tet_tables_row(fargs, st, H, W)
     log(f"K3 at tet headline: {k3_ms:.4f} ms (device {k3_dev_ms:.4f}); "
         f"plain {k3_plain_ms:.2f} ms. "
         f"Work: {n_pairs} pairs, {walked} slots staged, {need_slots} slots "
@@ -1084,16 +1164,19 @@ def tet_phases(dev):
     settings = port.TetRenderSettings(H, W, bg)
     renderer = port.TetRenderer(settings, device="cuda")
     counts = (tb.fwd_composite, tb.bwd_composite, rd.seg_sum, pfh.first_hit,
-              pt.fwd_march, pt.bwd_march)
+              pt.fwd_march, pt.bwd_march, pt.march_tables, pt.ray_start)
     for c in counts:
         c.launches = 0
     color, depth, active, (ovf, n_rendered) = renderer(*user, return_aux=True)
     torch.cuda.synchronize()
     launches = {"tet_first_hit": pfh.first_hit.launches,
                 "tet_fwd_march": pt.fwd_march.launches,
-                "tet_bwd_march": pt.bwd_march.launches}
+                "tet_bwd_march": pt.bwd_march.launches,
+                "tet_tables": pt.march_tables.launches,
+                "tet_ray_start": pt.ray_start.launches}
     check(launches == {"tet_first_hit": 1, "tet_fwd_march": 1,
-                       "tet_bwd_march": 0},
+                       "tet_bwd_march": 0, "tet_tables": 1,
+                       "tet_ray_start": 1},
           f"tet serving path launches {launches}")
     check(color.grad_fn is None, "tet serving path recorded a graph")
     check(all(c.launches == 0 for c in counts[:3]),
@@ -1243,6 +1326,8 @@ def tet_phases(dev):
          "bit_equal": bool(eq_s[1] and eq_h[1]), "blends": blends,
          "walk_steps": walks, "active": n_act, "max_walk": max_walk,
          "active_by_inverse": act_by_inverse},
+        {**tables_row, "launches_serving_path": {
+            k: launches[k] for k in ("tet_tables", "tet_ray_start")}},
     ]
     info = {"tet_forward_ms": tet_ms, "tet_forward_split_ms": split,
             "tet_forward_peak_mib": tet_peak / 2**20,
@@ -2084,7 +2169,8 @@ MV_TIMEOUT = 300.0  # seconds for the ranks' whole run
 MV_LOSS_RTOL = {"tri": 1e-6, "tet": 2e-5}
 # the kernels each rank must launch once per sharded step
 MV_KERNELS = {"tri": ("tri_fwd_composite", "tri_bwd_composite"),
-              "tet": ("tet_first_hit", "tet_fwd_march", "tet_bwd_march")}
+              "tet": ("tet_first_hit", "tet_fwd_march", "tet_bwd_march",
+                      "tet_tables", "tet_ray_start")}
 
 
 def sync(dev):
@@ -2102,7 +2188,8 @@ def launch_counters():
     return {"tri_fwd_composite": tb.fwd_composite,
             "tri_bwd_composite": tb.bwd_composite, "seg_sum": rd.seg_sum,
             "tet_first_hit": tet_first_hit.first_hit,
-            "tet_fwd_march": tet.fwd_march, "tet_bwd_march": tet.bwd_march}
+            "tet_fwd_march": tet.fwd_march, "tet_bwd_march": tet.bwd_march,
+            "tet_tables": tet.march_tables, "tet_ray_start": tet.ray_start}
 
 
 def mv_problem(kind, cfg, dev):
@@ -2687,7 +2774,10 @@ def step_capture_phases(dev):
 
 
 TET_GRAPH_KERNELS = ("tet_first_hit", "tet_fwd_march", "tet_bwd_march",
-                     "seg_sum")
+                     "tet_tables", "tet_ray_start", "seg_sum")
+# launches of each in one capture of a tet step (seg_sum: both reduces)
+TET_CAPTURE_LAUNCHES = {k: 2 if k == "seg_sum" else 1
+                        for k in TET_GRAPH_KERNELS}
 
 
 def tet_capture_phases(dev):
@@ -2721,7 +2811,7 @@ def tet_capture_phases(dev):
 
         def steps(n, **kw):
             """n steps; the launch counts of step 2, the capture (set to
-            0 just before it)."""
+            0 just before it), and of steps 3 to n, the replays."""
             step = dmesh.make_tet_train_step(geom, zeros, H, W, seed=seed,
                                              **kw)
             st, losses, grads = fresh(), [], []
@@ -2736,10 +2826,13 @@ def tet_capture_phases(dev):
                                 for k in TET_GRAPH_KERNELS}
                 losses.append(loss)
                 grads.append([p.grad.clone() for p in st.scene])
-            return step, st, losses, grads, launched
+            sync(dev)
+            replayed = {k: counters[k].launches - launched[k]
+                        for k in TET_GRAPH_KERNELS}
+            return step, st, losses, grads, (launched, replayed)
 
         _e, se, want, want_g, _l = steps(5, capture=False)
-        graphed, sg, got, got_g, captured = steps(5)
+        graphed, sg, got, got_g, (captured, replayed) = steps(5)
         loop = dmesh.make_tet_train_loop(geom, zeros, H, W, 5, seed=seed)
         sl, losses = loop(fresh(), batch)
         sync(dev)
@@ -2754,9 +2847,11 @@ def tet_capture_phases(dev):
         check((graphed.captures, graphed.replays, graphed.fallbacks)
               == (1, 4, 0) and (loop.step.captures, loop.step.replays)
               == (1, 4), f"tet {label}: captures, replays and fallbacks")
-        check(all(captured[k] == 1 for k in TET_GRAPH_KERNELS[:3])
-              and captured["seg_sum"] == 2,
+        check(captured == TET_CAPTURE_LAUNCHES,
               f"tet {label}: the capture's launches {captured}")
+        check(not any(replayed.values()),
+              f"tet {label}: the replays launched {replayed} through the "
+              "wrappers")
         check(float(want[-1]) < float(want[0]),
               f"tet {label}: the loss did not fall: {want}")
         r = port.TetRenderer(port.TetRenderSettings(H, W, bg), "cuda")
@@ -2772,6 +2867,7 @@ def tet_capture_phases(dev):
             "eager one")
         out[label] = {"losses": [float(x) for x in want],
                       "launches_per_capture": captured,
+                      "launches_in_replays": replayed,
                       "replays": graphed.replays + loop.step.replays,
                       "record_capacity": pt.record_capacity(B, H, W, 512)}
         log(f"tet step capture [{label}]: 5 captured steps (G1, one flag "
@@ -2851,8 +2947,9 @@ MESH_GRAPH_KERNELS = {"tri": TRI_GRAPH_KERNELS, "tet": TET_GRAPH_KERNELS}
 def _mesh_run(step, state, batch, n, counters=None):
     """``n`` steps: each loss, the digest of the parameters and gradients
     after each, the step's counts, and (with ``counters``) the launches of
-    step 2, the capture (counts set to 0 just before it)."""
-    losses, digests, launched = [], [], None
+    step 2, the capture (counts set to 0 just before it), and of steps 3
+    to n, the replays."""
+    losses, digests, launched, replayed = [], [], None, None
     for i in range(n):
         if counters is not None and i == 1:
             for w in counters.values():
@@ -2864,9 +2961,13 @@ def _mesh_run(step, state, batch, n, counters=None):
         losses.append(float(loss))
         digests.append(digest([*state.scene,
                                *(p.grad for p in state.scene)]))
+    if counters is not None:
+        sync(batch[0].device)
+        replayed = {k: w.launches - launched[k] for k, w in counters.items()}
     return state, {"losses": losses, "digests": digests,
                    "counts": [step.captures, step.replays, step.fallbacks],
-                   "launches_per_capture": launched}
+                   "launches_per_capture": launched,
+                   "launches_in_replays": replayed}
 
 
 def mesh_graph_rank():
@@ -2961,18 +3062,22 @@ def mesh_graph_phases():
               f"mesh {kind}: {x['replay_syncs']} host syncs in a replayed "
               f"sharded step, not {syncs}")
         launched = x["captured"]["launches_per_capture"]
+        replayed = x["captured"]["launches_in_replays"]
         names = MESH_GRAPH_KERNELS[kind]
         if kind == "tri":
             ok = all(launched[k] >= 1 for k in names)
         else:
-            ok = (all(launched[k] == 1 for k in names[:3])
-                  and launched["seg_sum"] == 2)
+            ok = {k: launched[k] for k in names} == TET_CAPTURE_LAUNCHES
         check(ok, f"mesh {kind}: the capture's launches {launched}")
+        check(not any(replayed[k] for k in names),
+              f"mesh {kind}: the replays launched {replayed} through the "
+              "wrappers")
         check(want["losses"][-1] < want["losses"][0],
               f"mesh {kind}: the loss did not fall: {want['losses']}")
         out[kind] = {"losses": want["losses"],
                      "launches_per_capture": {k: launched[k]
                                               for k in names},
+                     "launches_in_replays": {k: replayed[k] for k in names},
                      "replays": x["captured"]["counts"][1]
                      + x["loop"]["counts"][1],
                      "replay_host_syncs": x["replay_syncs"]}
@@ -3435,26 +3540,33 @@ def main() -> int:
     log(f"phase 29 (tet step capture) took "
         f"{time.perf_counter() - t_new:.1f} s; the script "
         f"{time.perf_counter() - t_main:.1f} s until here")
-    tet_graph_launches = {k: {"per_capture": tet_graphs["headline"][
-        "launches_per_capture"][k], "replays": tet_graphs["headline"][
-        "replays"]} for k in TET_GRAPH_KERNELS}
+    tet_head_graphs = tet_graphs["headline"]
+    tet_graph_launches = {k: {
+        "per_capture": tet_head_graphs["launches_per_capture"][k],
+        "in_replays": tet_head_graphs["launches_in_replays"][k],
+        "replays": tet_head_graphs["replays"]} for k in TET_GRAPH_KERNELS}
     t_new = time.perf_counter()
     mesh_graphs = mesh_graph_phases()
     log(f"phase 30 (sharded step capture over NCCL) took "
         f"{time.perf_counter() - t_new:.1f} s; the script "
         f"{time.perf_counter() - t_main:.1f} s until here")
-    mesh_launches = {k: {kind: {"per_capture": mesh_graphs[kind][
-        "launches_per_capture"][k], "replays": mesh_graphs[kind]["replays"]}
+    mesh_launches = {k: {kind: {
+        "per_capture": mesh_graphs[kind]["launches_per_capture"][k],
+        "in_replays": mesh_graphs[kind]["launches_in_replays"][k],
+        "replays": mesh_graphs[kind]["replays"]}
         for kind in ("tri", "tet") if k in MESH_GRAPH_KERNELS[kind]}
         for k in (*TRI_GRAPH_KERNELS, *TET_GRAPH_KERNELS)}
     sharded = {k: v for kind in ("tri", "tet")
                for k, v in multi_view[kind]["launches_per_rank_step"].items()}
     for entry in (*tet_kernels, k5_entry):
-        entry["launches_sharded_per_rank_step"] = sharded[entry["name"]]
-        entry["launches_captured_tet_step"] = tet_graph_launches[
-            entry["name"]]
-        entry["launches_captured_sharded_step"] = mesh_launches[
-            entry["name"]]
+        # the tables row holds two kernels: its counts go by kernel
+        names = entry.get("kernels")
+        for field, counts in (
+                ("launches_sharded_per_rank_step", sharded),
+                ("launches_captured_tet_step", tet_graph_launches),
+                ("launches_captured_sharded_step", mesh_launches)):
+            entry[field] = (counts[entry["name"]] if names is None
+                            else {k: counts[k] for k in names})
 
     common = {"route": "cuda"}
     log(json.dumps({"kernels": [

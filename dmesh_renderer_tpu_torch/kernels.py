@@ -48,6 +48,8 @@ SIGNATURES = {
     "tet_fwd": {"tet_first_hit": [_P] * 8 + [_I] * 3 + [_P],
                 "tet_fwd_march": [_P] * 12 + [_I] * 5 + [_F, _P]},
     "tet_bwd": {"tet_bwd_march": [_P] * 13 + [_I] * 3 + [_P]},
+    "tet_tables": {"tet_tables": [_P] * 14 + [_I] * 3 + [_P],
+                   "tet_ray_start": [_P] * 15 + [_I] * 2 + [_P]},
     "probes": {"take_rows": [_P] * 3 + [_I] * 2 + [_P],
                "roll_merge": [_P] * 2 + [_I] + [_P]},
     "march_probe": {"mega_step": [_P] * 5 + [_I] * 2 + [_P],

@@ -10,7 +10,9 @@ pixel's ray through the tet connectivity:
   -> the first hit: ``first_intersection_dense`` (F at or below the
      device's ``BINNED_FIRST_HIT_THRESHOLD``/``_GPU``) or the binned
      ``tet_first_hit.first_intersection_binned`` (kernel K3)
-  -> ``march_tables`` and the start tet of every ray (``start_tets``)
+  -> ``march_tables`` and each ray's start tet, projective z/w and first
+     hit t/u/v (``ray_start``), on the card by the two kernels of
+     csrc/tet_tables.cu
   -> ``fwd_march`` (kernel K4, csrc/tet_fwd.cu): per ray, blend the current
      face, update log-transmittance, and walk to the next face until T is
      exhausted, the ray leaves the mesh, or the walk breaks
@@ -119,6 +121,7 @@ LOG_T_FLOOR = float(torch.tensor(math.log(T_EPS * 0.1), dtype=torch.float32))
 TET_GEO_COLS = 40  # p0, e1, e2 of the 4 face slots (36), 4 outward signs
 TET_NRM_COLS = 12  # the 4 face slots' outward unit normals (K4's, K5's walk)
 TET_ID_COLS = 8    # 4 face ids, 4 neighbour tet ids (-1: none)
+GEO_COLS = 12      # a face's p0, e1, e2 and unit normal n-hat
 SHADE_COLS = 12    # 9 corner colours, alpha, log(max(1 - alpha, 1e-37)), inten
 
 REC_COLS = 10  # K5 record values: 9 colour moments (vertex-major), dL/dalpha
@@ -189,6 +192,37 @@ def first_intersection_dense(verts, faces, valid, order, ray_o, ray_d):
 # March tables, start tets, projective depth
 # =============================================================================
 
+def _check_tensors(name, want, device):
+    """Raise unless every (tensor, dtype, shape) of ``want`` has that dtype
+    and shape and lies on ``device``: the kernel wrappers' argument
+    checks."""
+    for t, dtype, shape in want:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name}: all tensors must share a device")
+
+
+def _plain_device(name, t) -> bool:
+    """True where ``t`` is on the CPU (the plain version runs), False on
+    CUDA (the kernel runs); raises on any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
+
+
+def _aligned(t, nbytes: int = 16):
+    """``t`` contiguous, and copied where its data is not ``nbytes``-aligned
+    (a kernel reads its rows as vectors)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % nbytes else t
+
+
 def march_tables(verts, faces, tets, tet_faces, face_tets, verts_color,
                  faces_opacity, faces_intense):
     """The march's per-tet and per-(view, face) tables.
@@ -202,7 +236,56 @@ def march_tables(verts, faces, tets, tet_faces, face_tets, verts_color,
     that is neither this tet nor -1), ``shade`` [B*F, 12] f32 (9 corner
     colours, alpha, log(max(1 - alpha, 1e-37)), the view's intensity), and
     ``geo`` [F, 12] (p0, e1, e2, n-hat) and ``sign`` [T, 4] for the start
-    tet."""
+    tet.
+
+    On CUDA tensors this launches ``tet_tables`` of csrc/tet_tables.cu
+    (int32 indices, f32 values; raises if it cannot), the same bits; on CPU
+    tensors it runs ``march_tables_plain``."""
+    args = (verts, faces, tets, tet_faces, face_tets, verts_color,
+            faces_opacity, faces_intense)
+    if _plain_device("march_tables", verts):
+        return march_tables_plain(*args)
+    return _tables_kernel(*args)
+
+
+march_tables.launches = 0
+
+
+def _tables_kernel(verts, faces, tets, tet_faces, face_tets, verts_color,
+                   faces_opacity, faces_intense):
+    """``march_tables`` by one launch of ``tet_tables``, after its argument
+    checks."""
+    P, F, T = verts.shape[0], faces.shape[0], tets.shape[0]
+    B = faces_intense.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    dev = verts.device
+    _check_tensors("march_tables", (
+        (verts, f32, (P, 3)), (faces, i32, (F, 3)), (tets, i32, (T, 4)),
+        (tet_faces, i32, (T, 4)), (face_tets, i32, (F, 2)),
+        (verts_color, f32, (P, 3)), (faces_opacity, f32, (F,)),
+        (faces_intense, f32, (B, F))), dev)
+    # tets and tet_faces are read as int4 rows, face_tets as int2
+    tensors = [verts.contiguous(), faces.contiguous(), _aligned(tets),
+               _aligned(tet_faces), _aligned(face_tets, 8),
+               verts_color.contiguous(), faces_opacity.contiguous(),
+               faces_intense.contiguous()]
+    out = {"tet_geo": torch.empty((T, TET_GEO_COLS), dtype=f32, device=dev),
+           "tet_nrm": torch.empty((T, TET_NRM_COLS), dtype=f32, device=dev),
+           "tet_ids": torch.empty((T, TET_ID_COLS), dtype=i32, device=dev),
+           "shade": torch.empty((B * F, SHADE_COLS), dtype=f32, device=dev),
+           "geo": torch.empty((F, GEO_COLS), dtype=f32, device=dev),
+           "sign": torch.empty((T, 4), dtype=f32, device=dev)}
+    launch("tet_tables", "tet_tables",
+           tensors + [out[k] for k in ("geo", "sign", "tet_geo", "tet_nrm",
+                                       "tet_ids", "shade")], [F, T, B], dev)
+    march_tables.launches += 1
+    return out
+
+
+def march_tables_plain(verts, faces, tets, tet_faces, face_tets,
+                       verts_color, faces_opacity, faces_intense):
+    """Plain torch version of ``march_tables``: the same inputs and outputs
+    (any index dtype)."""
     F = faces.shape[0]
     T = tets.shape[0]
     B = faces_intense.shape[0]
@@ -253,10 +336,11 @@ def march_tables(verts, faces, tets, tet_faces, face_tets, verts_color,
             "shade": shade.contiguous(), "geo": geo, "sign": sign}
 
 
-def start_tets(first_face, ray_d, geo, sign, face_tets, tet_faces):
+def start_tets_plain(first_face, ray_d, geo, sign, face_tets, tet_faces):
     """The tet each ray enters at its first hit [M] int32 (-1: none): of
     the first face's two tets, the one whose outward normal of that face
-    opposes the ray; when both qualify the second wins.
+    opposes the ray; when both qualify the second wins. Plain torch: the CPU
+    path of ``ray_start`` and the card kernel's reference.
 
     first_face [M] int32; ray_d [M, 3]; ``geo``/``sign`` of
     ``march_tables``."""
@@ -280,11 +364,12 @@ def start_tets(first_face, ray_d, geo, sign, face_tets, tet_faces):
     return first_tet.to(torch.int32)
 
 
-def projective_zw(cam_o, ray_d, mv_t, proj_t):
+def projective_zw_plain(cam_o, ray_d, mv_t, proj_t):
     """z and w of the homogeneous point proj(mv(o + t d)) as affine
     functions of t, per ray: [B*N, 4] (z at 0, w at 0, dz/dt, dw/dt), in
     the JAX package's operation order. cam_o [B, 3]; ray_d [B, N, 3];
-    mv_t/proj_t [B, 4, 4] transposed."""
+    mv_t/proj_t [B, 4, 4] transposed. Plain torch: the CPU path of
+    ``ray_start`` and the card kernel's reference."""
     B, N = ray_d.shape[:2]
     ro = [cam_o[:, k, None] for k in range(3)]  # [B, 1]
     rd = [ray_d[..., k] for k in range(3)]  # [B, N]
@@ -300,6 +385,64 @@ def projective_zw(cam_o, ray_d, mv_t, proj_t):
     phdw = dv[0] * pj(0, 3) + dv[1] * pj(1, 3) + dv[2] * pj(2, 3)
     return torch.stack([phoz.expand(B, N), phow.expand(B, N), phdz, phdw],
                        dim=-1).reshape(B * N, 4)
+
+
+def ray_start(first_face, ray_d, t, u, v, cam_o, mv_t, proj_t, geo, sign,
+              face_tets, tet_faces):
+    """K4's per-ray inputs: (first_tet [M] int32 of ``start_tets_plain``,
+    zw [M, 4] f32 of ``projective_zw_plain``, tuv [3, M] f32: the first
+    hit's t, u, v). first_face [M] int32; ray_d [M, 3] (M = B * N,
+    view-major); t, u, v of M elements each; cam_o [B, 3]; mv_t/proj_t
+    [B, 4, 4] transposed; geo, sign of ``march_tables``; face_tets [F, 2],
+    tet_faces [T, 4] int32.
+
+    On CUDA tensors this is one launch of ``tet_ray_start`` of
+    csrc/tet_tables.cu (int32 indices, f32 values; raises if it cannot),
+    the same bits; on CPU tensors the two plain versions and a stack."""
+    if _plain_device("ray_start", ray_d):
+        M, B = ray_d.shape[0], cam_o.shape[0]
+        return (start_tets_plain(first_face, ray_d, geo, sign, face_tets,
+                                 tet_faces),
+                projective_zw_plain(cam_o, ray_d.reshape(B, M // B, 3), mv_t,
+                                    proj_t),
+                torch.stack([x.reshape(M) for x in (t, u, v)]))
+    return _ray_start_kernel(first_face, ray_d, t, u, v, cam_o, mv_t, proj_t,
+                             geo, sign, face_tets, tet_faces)
+
+
+ray_start.launches = 0
+
+
+def _ray_start_kernel(first_face, ray_d, t, u, v, cam_o, mv_t, proj_t, geo,
+                      sign, face_tets, tet_faces):
+    """``ray_start`` by one launch of ``tet_ray_start``, after its argument
+    checks."""
+    M, B = ray_d.shape[0], cam_o.shape[0]
+    F, T = geo.shape[0], sign.shape[0]
+    hit = [x.reshape(M) for x in (t, u, v)]
+    dev = ray_d.device
+    f32, i32 = torch.float32, torch.int32
+    _check_tensors("ray_start", (
+        (first_face, i32, (M,)), (ray_d, f32, (M, 3)),
+        *((x, f32, (M,)) for x in hit), (cam_o, f32, (B, 3)),
+        (mv_t, f32, (B, 4, 4)), (proj_t, f32, (B, 4, 4)),
+        (geo, f32, (F, GEO_COLS)), (sign, f32, (T, 4)),
+        (face_tets, i32, (F, 2)), (tet_faces, i32, (T, 4))), dev)
+    if B == 0 or M % B:
+        raise ValueError(f"ray_start: {M} rays for {B} views")
+    # geo, sign and tet_faces are read as 16-byte rows, face_tets as int2
+    tensors = [first_face.contiguous(), ray_d.contiguous(),
+               *(x.contiguous() for x in hit),
+               *(x.contiguous() for x in (cam_o, mv_t, proj_t)),
+               _aligned(geo), _aligned(sign), _aligned(face_tets, 8),
+               _aligned(tet_faces)]
+    out = (torch.empty((M,), dtype=i32, device=dev),
+           torch.empty((M, 4), dtype=f32, device=dev),
+           torch.empty((3, M), dtype=f32, device=dev))
+    launch("tet_tables", "tet_ray_start", tensors + list(out), [M, M // B],
+           dev)
+    ray_start.launches += 1
+    return out
 
 
 # =============================================================================
@@ -318,14 +461,7 @@ def _check_march_args(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
             (tet_nrm, torch.float32, (T, TET_NRM_COLS)),
             (tet_ids, torch.int32, (T, TET_ID_COLS)),
             (shade, torch.float32, (shade.shape[0], SHADE_COLS)))
-    for t, dtype, shape in want:
-        if t.dtype != dtype:
-            raise TypeError(f"fwd_march: expected {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fwd_march: expected shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if t.device != ray_d.device:
-            raise ValueError("fwd_march: all tensors must share a device")
+    _check_tensors("fwd_march", want, ray_d.device)
     if M != B * H * W or shade.shape[0] % B:
         raise ValueError(f"fwd_march: {M} rays for {B} views of {H}x{W}, "
                          f"shade rows {shade.shape[0]}")
@@ -338,7 +474,7 @@ def fwd_march(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_nrm,
 
     ray_d [M, 3] (M = B * H * W rays, view-major, each view's pixels
     row-major); cam_o [B, 3]; zw [M, 4]
-    (``projective_zw``); first_face, first_tet [M] int32 (-1: the ray does
+    (``ray_start``); first_face, first_tet [M] int32 (-1: the ray does
     not march); tuv [3, M] f32, the first hit's t, u, v; the tables of
     ``march_tables``. At most ``max_steps`` faces are blended per ray.
     Returns (out_f [6, M] f32: C rgb, D, log T, the log T before the last
@@ -349,14 +485,11 @@ def fwd_march(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_nrm,
     args = (ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo, tet_nrm,
             tet_ids, shade)
     _check_march_args(*args, H, W)
-    if ray_d.device.type == "cpu":
+    if _plain_device("fwd_march", ray_d):
         return fwd_march_plain(*args, H, W, max_steps)
-    if ray_d.device.type != "cuda":
-        raise ValueError(f"fwd_march: unsupported device {ray_d.device}")
-    tensors = [x.contiguous() for x in args]
-    for j in (2, 6, 7, 8, 9):  # zw and the tables are read as 16-byte rows
-        if tensors[j].data_ptr() % 16:
-            tensors[j] = tensors[j].clone()
+    # zw and the tables are read as 16-byte rows
+    tensors = [_aligned(x) if j in (2, 6, 7, 8, 9) else x.contiguous()
+               for j, x in enumerate(args)]
     M = ray_d.shape[0]
     B = cam_o.shape[0]
     F = shade.shape[0] // B
@@ -579,10 +712,9 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
     M = B * N
     rd_flat = ray_d.reshape(M, 3)
     ff_flat = first_face.reshape(M)
-    first_tet = start_tets(ff_flat, rd_flat, march["geo"], march["sign"],
-                           face_tets, tet_faces)
-    zw = projective_zw(cam_o, ray_d, mv_t, proj_t)
-    tuv = torch.stack([rt.reshape(M), iu.reshape(M), iv.reshape(M)])
+    first_tet, zw, tuv = ray_start(ff_flat, rd_flat, rt, iu, iv, cam_o, mv_t,
+                                   proj_t, march["geo"], march["sign"],
+                                   face_tets, tet_faces)
     spans.mark("tet.tables")
     out_f, out_i = fwd_march(rd_flat, cam_o, zw, ff_flat, first_tet, tuv,
                              march["tet_geo"], march["tet_nrm"],
@@ -708,14 +840,7 @@ def _check_bwd_args(ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_nrm,
             (tet_nrm, torch.float32, (T, TET_NRM_COLS)),
             (tet_ids, torch.int32, (T, TET_ID_COLS)),
             (shade, torch.float32, (shade.shape[0], SHADE_COLS)))
-    for t, dtype, shape in want:
-        if t.dtype != dtype:
-            raise TypeError(f"bwd_march: expected {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"bwd_march: expected shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if t.device != ray_d.device:
-            raise ValueError("bwd_march: all tensors must share a device")
+    _check_tensors("bwd_march", want, ray_d.device)
     if M != B * N or shade.shape[0] % B:
         raise ValueError(f"bwd_march: {M} rays for {B} views of {N}, shade "
                          f"rows {shade.shape[0]}")
@@ -743,16 +868,13 @@ def bwd_march(ray_d, cam_o, zw, ray_i, ray_f, off, n_records: int, tet_geo,
     args = (ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_nrm, tet_ids,
             shade)
     _check_bwd_args(*args, N)
-    if ray_d.device.type == "cpu":
+    if _plain_device("bwd_march", ray_d):
         out = bwd_march_plain(*args[:6], n_records, *args[6:], N)
         bwd_march.mismatches = out[2].sum()
         return out
-    if ray_d.device.type != "cuda":
-        raise ValueError(f"bwd_march: unsupported device {ray_d.device}")
-    tensors = [x.contiguous() for x in args]
-    for j in (2, 6, 7, 8, 9):  # zw and the tables are read as 16-byte rows
-        if tensors[j].data_ptr() % 16:
-            tensors[j] = tensors[j].clone()
+    # zw and the tables are read as 16-byte rows
+    tensors = [_aligned(x) if j in (2, 6, 7, 8, 9) else x.contiguous()
+               for j, x in enumerate(args)]
     M = ray_d.shape[0]
     F = shade.shape[0] // cam_o.shape[0]
     dev = ray_d.device

@@ -73,7 +73,7 @@ def stages(fargs, h, w, seed=0, kcap=None):
     (verts, faces, vc, fo, mv_t, proj_t, inv_mv_t, inv_proj_t, fi, tets,
      face_tets, tet_faces, bg) = fargs
     B, F = mv_t.shape[0], faces.shape[0]
-    N, M = h * w, mv_t.shape[0] * h * w
+    M = B * h * w
     gx, gy = (w + 31) // 32, (h + 31) // 32
     if kcap is None:
         kcap = binning.default_key_capacity(B, F, avg_tiles_per_face=5)
@@ -109,12 +109,9 @@ def stages(fargs, h, w, seed=0, kcap=None):
         st["march"] = m = pt.march_tables(verts, faces, tets, tet_faces,
                                           face_tets, vc, fo, fi)
         st["ff"] = st["fh"][0].reshape(M)
-        st["first_tet"] = pt.start_tets(st["ff"], st["rd"].reshape(M, 3),
-                                        m["geo"], m["sign"], face_tets,
-                                        tet_faces)
-        st["zw"] = pt.projective_zw(cam_o, st["rd"].reshape(B, N, 3), mv_t,
-                                    proj_t)
-        st["tuv"] = torch.stack([x.reshape(M) for x in st["fh"][1:4]])
+        st["first_tet"], st["zw"], st["tuv"] = pt.ray_start(
+            st["ff"], st["rd"].reshape(M, 3), *st["fh"][1:4], cam_o, mv_t,
+            proj_t, m["geo"], m["sign"], face_tets, tet_faces)
 
     def march_inputs():
         m = st["march"]
@@ -186,8 +183,9 @@ def _items(st, stage):
                                      "sign")]
                 + [("shade but its log column", m["shade"][:, cols]),
                    ("shade log column (log(1 - alpha))", m["shade"][:, 10]),
-                   ("start tets", st["first_tet"]), ("projective z/w",
-                                                     st["zw"])])
+                   ("start tets", st["first_tet"]),
+                   ("projective z/w", st["zw"]), ("first hit t/u/v",
+                                                  st["tuv"])])
     if stage == "K4":
         out_f, out_i = st["out"]
         return ([(f"K4 {k}", out_f[i]) for i, k in enumerate(

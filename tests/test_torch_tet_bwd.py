@@ -219,8 +219,8 @@ def test_walk_back_returns_to_the_previous_face(spec):
     ff = saved["first_face"].reshape(M)
     # rays of two or more blends that entered a tet at their first face:
     # one forward step from the first face, then one backward step
-    first_tet = pt.start_tets(ff, saved["ray_d"], m["geo"], m["sign"],
-                              spec["t"][10], spec["t"][11])
+    first_tet = pt.start_tets_plain(ff, saved["ray_d"], m["geo"],
+                                    m["sign"], spec["t"][10], spec["t"][11])
     sel = torch.nonzero((saved["n_contrib"].reshape(M) >= 2)
                         & (first_tet >= 0)).squeeze(1)
     assert sel.numel() > 50

@@ -132,9 +132,10 @@ def main():
                   f"{ts[1]:.9f}, {abs(ts[0] - ts[1]) / ulp:.1f} f32 ulps "
                   f"apart")
             continue
-        ct = int(pt.start_tets(torch.tensor([fp], dtype=torch.int32),
-                               torch.from_numpy(d[None].astype(np.float32)),
-                               m["geo"], m["sign"], t[10], t[11])[0])
+        ct = int(pt.start_tets_plain(
+            torch.tensor([fp], dtype=torch.int32),
+            torch.from_numpy(d[None].astype(np.float32)), m["geo"],
+            m["sign"], t[10], t[11])[0])
         steps = int(min(port["n_contrib"][pix], ref["n_contrib"][pix]))
         margin, step, slot = walk_margins(fp, ct, d, o, m, steps)
         print(f"{head}; nearest decision: step {step} slot {slot}, f64 "
