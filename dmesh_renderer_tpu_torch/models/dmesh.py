@@ -69,7 +69,7 @@ import torch
 
 from ..ops import tet as tet_ops
 from ..ops.tet import render_tet_core
-from ..ops.binning import default_key_capacity, warn_if_overflow
+from ..ops.binning import default_key_capacity, run_capacity, warn_if_overflow
 from ..ops.tri import render_tri_auto, tri_strategy
 from ..parallel.sharding import ViewMesh, all_reduce, graph_capturable
 from ..utils import spans
@@ -135,7 +135,7 @@ def render_views(scene: TriScene, faces, batch: ViewBatch, bg, height: int,
                  kcap: int | None = None, **kw):
     """Render ``batch``'s views of ``scene``: (color [B, 3, H, W],
     depth [B, 1, H, W]); ``kw`` goes to ``render_tri_auto``
-    (``with_aux``, ``warn_overflow``)."""
+    (``with_aux``, ``warn_overflow``, ``with_runs``)."""
     return render_tri_auto(
         scene.verts, faces, scene.verts_color, scene.faces_opacity,
         batch.mv_t, batch.proj_t, batch.inv_mv_t, batch.inv_proj_t,
@@ -203,7 +203,8 @@ class _Graph(NamedTuple):
     opt: Any                # that state's optimiser, kept (``_fingerprint``)
     batch: Any              # the static inputs each call copies into
     loss: torch.Tensor      # [] the step's loss, rewritten by each replay
-    aux: tuple              # (overflow bool[], num_rendered int64[])
+    aux: tuple              # (overflow bool[], num_rendered int64[], and
+                            # the tri step's runs int64[])
     flag: Any               # G1's record overflow flag, f32[] summed over
                             # the mesh (split steps), or None
     grads: tuple            # the gradients G1 writes and G2 reads
@@ -238,6 +239,7 @@ class _CapturedStep:
     builder = ""           # the public builder's name, for messages
     split = False          # G1 (gradients) and G2 (``opt.step()``)
     overflow_context = ""  # the overflow warning's context
+    overflow_settings = None  # the render settings whose capacities it names
     avg_tiles = 16         # ``default_key_capacity``'s tiles per face
     faces_at = 0           # the index of ``faces`` in the constants
 
@@ -262,29 +264,40 @@ class _CapturedStep:
 
     def steps(self, state: TrainState, batch, n: int) -> torch.Tensor:
         """``n`` steps on the same batch; returns the losses [n]. On the
-        captured path the losses and the overflow flags are written into
-        device tensors and read once at the end, which warns once if any
-        step overflowed (a split step also reads its one flag per step)."""
+        captured path the losses and each step's aux (the overflow flag,
+        the pair total and, in the tri step, the run count) are written
+        into device tensors and read once at the end, which warns once if
+        any step overflowed, with the first such step's counts (a split
+        step also reads its one flag per step)."""
         if not self._captured(state, batch):
             return torch.stack([self(state, batch)[1] for _ in range(n)])
         dev = state.scene[0].device
         losses = torch.empty(n, dtype=torch.float32, device=dev)
-        flags = torch.zeros(n, dtype=torch.bool, device=dev)
-        totals = torch.zeros(n, dtype=torch.int64, device=dev)
+        auxes = None
         for i in range(n):
-            loss, (overflow, total), _r = self._run(state, batch, warn=False)
+            loss, aux, _r = self._run(state, batch, warn=False)
+            if auxes is None:
+                auxes = [torch.zeros(n, dtype=a.dtype, device=dev)
+                         for a in aux]
             losses[i].copy_(loss)
-            flags[i].copy_(overflow)
-            totals[i].copy_(total)
-        kcap = self.kcap
-        if kcap is None:
-            kcap = default_key_capacity(batch.mv_t.shape[0],
-                                        len(self._host_consts[
-                                            self.faces_at]),
-                                        self.avg_tiles)
-        warn_if_overflow(flags.any(), totals[flags.int().argmax()], kcap,
-                         self.overflow_context)
+            for buf, a in zip(auxes, aux):
+                buf[i].copy_(a)
+        flags, totals, *runs = auxes
+        first = flags.int().argmax()
+        kcap, run_cap = self._capacities(batch.mv_t.shape[0])
+        warn_if_overflow(flags.any(), totals[first], kcap,
+                         self.overflow_context,
+                         runs=runs[0][first] if runs else None,
+                         run_cap=run_cap, settings=self.overflow_settings)
         return losses
+
+    def _capacities(self, B: int) -> tuple[int, int]:
+        """The binning's key slots and run-table rows at ``B`` views (0
+        rows: no run table)."""
+        if self.kcap is not None:
+            return self.kcap, 0
+        return default_key_capacity(
+            B, len(self._host_consts[self.faces_at]), self.avg_tiles), 0
 
     def _constants(self, dev):
         """The host-given tensors on ``dev``, moved once (no host-to-device
@@ -434,14 +447,18 @@ class TrainStep(_CapturedStep):
     whole step is one CUDA graph (module docstring)."""
 
     builder = "make_train_step"
-    overflow_context = ("render_tri_binned; raise "
-                        "TriRenderSettings.key_capacity")
+    overflow_context = "render_tri_binned"
+    overflow_settings = "TriRenderSettings"
 
     def __init__(self, faces, bg, height: int, width: int, mesh=None,
                  force: str | None = None, kcap: int | None = None,
                  capture: bool = True):
         super().__init__((faces, bg), height, width, mesh, kcap, capture)
         self.force = force
+
+    def _capacities(self, B: int) -> tuple[int, int]:
+        kcap, _ = super()._capacities(B)
+        return kcap, run_capacity(B * len(self._host_consts[0]), kcap)
 
     def _captured(self, state: TrainState, batch: ViewBatch) -> bool:
         """Whether this step runs as a CUDA graph: on the card, without a
@@ -456,7 +473,7 @@ class TrainStep(_CapturedStep):
     def _grads(self, state: TrainState, batch: ViewBatch, warn: bool):
         """zero_grad, the loss and its backward, the loss and the gradients
         averaged over a mesh: (loss, on the binned path its (overflow,
-        num_rendered), None)."""
+        num_rendered, runs), None)."""
         state.opt_state.zero_grad(set_to_none=True)
         scene = state.scene
         faces, bg = self._constants(scene.verts.device)
@@ -464,7 +481,7 @@ class TrainStep(_CapturedStep):
                               scene.verts.device, self.force) == "binned"
         out = render_views(scene, faces, batch, bg, self.height, self.width,
                            self.force, self.kcap, with_aux=binned,
-                           warn_overflow=warn)
+                           warn_overflow=warn, with_runs=True)
         loss = torch.mean((out[0] - batch.target) ** 2)
         loss.backward()
         loss = loss.detach()
@@ -590,6 +607,7 @@ class TetTrainStep(_CapturedStep):
     builder = "make_tet_train_step"
     split = True
     overflow_context = tet_ops.FH_OVERFLOW_CONTEXT
+    overflow_settings = "TetRenderSettings"
     avg_tiles = 5
     faces_at = 1
 

@@ -18,7 +18,7 @@ A port of the JAX package's ``ops/binning.py``, written the plain GPU way
 4. tile ranges by ``searchsorted``.
 
 Both paths have the JAX package's static shapes: the slot table holds
-``kcap`` slots (and the exact path's run table ``_run_capacity`` runs)
+``kcap`` slots (and the exact path's run table ``run_capacity`` rows)
 whatever the scene, each position finds its owner by ``searchsorted`` over
 the inclusive prefix sum of the counts (``owners``), and the positions past
 the live count take the sentinel tile key ``B * n_tiles``, which sorts them
@@ -30,7 +30,15 @@ under the same capacity policy: at most ``kcap`` slots (and ``run_cap``
 runs) are kept in emission order, so the farthest faces of the highest view
 lose their tiles first, and ``overflow`` is ``total > kcap`` or a run-table
 overflow. The number of emitted pairs (``total``) is exact and independent
-of the capacity, as ``num_rendered`` of the JAX package.
+of the key capacity, as ``num_rendered`` of the JAX package (runs past the
+run table emit no pairs), and the exact path's number of (face, tile-row)
+runs (``runs``) is exact and independent of both capacities.
+
+The run table has no ceiling: the JAX package clamps it at 2^21 rows (its
+TPU layout's), which eight views of 100,000 faces outgrow (~2.77 M runs).
+Every position and offset is int64 and only tile coordinates (below the
+grid's size) are cast to float32, so the table is exact at any size that
+fits in memory.
 
 Not ported, by design: slab alignment (``align_to_slabs``), which exists
 for the TPU's DMA windows; the CUDA kernel reads unaligned [start, end)
@@ -51,8 +59,6 @@ from .geometry import preprocess_faces, project_verts, sat_i32
 # The JAX package takes bbox emission above this key capacity; the port
 # does the same so both report the same pair count for any capacity.
 _EXACT_KCAP_MAX = 1 << 28
-# The JAX package's run-table capacity ceiling.
-_MAX_BF = 1 << 21
 
 
 class BinnedKeys(NamedTuple):
@@ -69,6 +75,9 @@ class BinnedKeys(NamedTuple):
     ends: torch.Tensor       # [B * n_tiles] int32
     total: torch.Tensor      # [] int64 emitted pairs (before the capacity)
     overflow: torch.Tensor   # [] bool
+    # [] int64 (face, tile-row) runs (before the run table's capacity); 0 on
+    # the bbox path, which has no run table
+    runs: torch.Tensor
 
 
 def _row_tile_interval(ea, eb, ec, rx, nx, tyf, tile_px, grid_x):
@@ -174,15 +183,14 @@ def owners(counts: torch.Tensor, n: int):
     return owner.clamp_(max=counts.numel() - 1), live, incl - counts, incl[-1]
 
 
-def _run_capacity(bf: int, kcap: int, run_cap: int | None = None) -> int:
+def run_capacity(bf: int, kcap: int, run_cap: int | None = None) -> int:
     """Capacity of the (face, tile-row) run table: ``run_cap`` when given
     (measured rows + margin, ``recommended_run_capacity``), else the JAX
-    package's shape heuristic; rounded up to a multiple of 128."""
-    if run_cap is None:
-        cap = max(1024, min(max(4 * bf, kcap // 4), _MAX_BF - 128))
-    else:
-        cap = max(1024, min(int(run_cap), _MAX_BF - 128))
-    return ((cap + 127) // 128) * 128
+    package's shape heuristic max(4 B F, kcap / 4), at least 1024; rounded
+    up to a multiple of 128. Unlike the JAX package's, it has no ceiling
+    (module docstring)."""
+    cap = max(4 * bf, kcap // 4) if run_cap is None else int(run_cap)
+    return ((max(1024, cap) + 127) // 128) * 128
 
 
 def default_key_capacity(B: int, F: int, avg_tiles_per_face: int = 16) -> int:
@@ -191,15 +199,37 @@ def default_key_capacity(B: int, F: int, avg_tiles_per_face: int = 16) -> int:
     return ((kcap + 127) // 128) * 128
 
 
-def overflow_warning(total: int, kcap: int, context: str) -> None:
-    """Warn that the key capacity dropped (face, tile) pairs, in the JAX
-    package's wording (``binning.overflow_warning``). The renders also
-    report the overflow as data (``return_aux``, ``tri_render_stats``)."""
-    warnings.warn(
-        f"dmesh_renderer_tpu_torch ({context}): tile-binning key capacity "
-        f"overflow ({total} (face, tile) pairs emitted > capacity {kcap}). "
-        "The FARTHEST faces of the highest view drop their tiles first. "
-        "Raise the key capacity.", stacklevel=4)
+def overflow_warning(total: int, kcap: int, context: str,
+                     runs: int | None = None, run_cap: int = 0,
+                     settings: str | None = None) -> None:
+    """Warn that the binning dropped work, naming the table that overflowed
+    and the setting to raise: the key slots, where ``total`` (face, tile)
+    pairs were emitted for ``kcap`` slots (the JAX package's wording,
+    ``binning.overflow_warning``), and the run table, where ``runs`` (face,
+    tile-row) runs were emitted for ``run_cap`` rows (``runs`` None: the
+    render has no run table). ``settings``: the render settings class
+    whose ``key_capacity``/``run_capacity`` the context names. The renders
+    also report the overflow as data (``return_aux``,
+    ``tri_render_stats``)."""
+    parts, fields = [], []
+    if total > kcap:
+        fields.append("key_capacity")
+        parts.append(
+            f"tile-binning key capacity overflow ({total} (face, tile) pairs "
+            f"emitted > capacity {kcap}). The FARTHEST faces of the highest "
+            "view drop their tiles first. Raise the key capacity.")
+    if runs is not None and runs > run_cap:
+        fields.append("run_capacity")
+        parts.append(
+            f"tile-binning run table overflow ({runs} (face, tile-row) runs "
+            f"emitted > capacity {run_cap} rows). The FARTHEST faces of the "
+            "highest view drop their tile rows first. Raise the run "
+            "capacity.")
+    if settings is not None:
+        context += "; raise " + " and ".join(f"{settings}.{f}"
+                                             for f in fields)
+    warnings.warn(f"dmesh_renderer_tpu_torch ({context}): " + " ".join(parts),
+                  stacklevel=4)
 
 
 def is_capturing(device: torch.device) -> bool:
@@ -209,19 +239,23 @@ def is_capturing(device: torch.device) -> bool:
 
 
 def warn_if_overflow(overflow: torch.Tensor, total: torch.Tensor, kcap: int,
-                     context: str, extra=()):
-    """Read ``overflow``, ``total`` and the 0-d integer tensors ``extra`` in
-    one transfer (the frame's one host read, ``host_read``), warn
-    (``overflow_warning``) if the flag is set, and return the values of
-    ``extra`` as ints. While the stream captures a CUDA graph nothing is
-    read and None is returned: the flag stays data, as the JAX package
-    leaves it on a backend without host callbacks."""
+                     context: str, extra=(), runs: torch.Tensor | None = None,
+                     run_cap: int = 0, settings: str | None = None):
+    """Read ``overflow``, ``total``, ``runs`` (where given) and the 0-d
+    integer tensors ``extra`` in one transfer (the frame's one host read,
+    ``host_read``), warn (``overflow_warning``, with ``run_cap`` and
+    ``settings``) if the flag is set, and return the values of ``extra`` as
+    ints. While the stream captures a CUDA graph nothing is read and None
+    is returned: the flag stays data, as the JAX package leaves it on a
+    backend without host callbacks."""
     if is_capturing(overflow.device):
         return None
-    flag, n, *rest = host_read(overflow, total, *extra)
+    counts = () if runs is None else (runs,)
+    flag, n, *rest = host_read(overflow, total, *counts, *extra)
     if flag:
-        overflow_warning(n, kcap, context)
-    return rest
+        overflow_warning(n, kcap, context, rest[0] if counts else None,
+                         run_cap, settings)
+    return rest[len(counts):]
 
 
 def host_read(*values: torch.Tensor) -> list:
@@ -259,7 +293,7 @@ def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
     # --- (face, tile-row) runs, in emission order, at the run capacity ---
     ny_s = take(rmax[..., 1] - rmin[..., 1]).long()
     ny_eff = torch.where(take(counts) > 0, ny_s, 0)
-    nr_cap = _run_capacity(B * F, kcap, run_cap)
+    nr_cap = run_capacity(B * F, kcap, run_cap)
     runq, run_live, row_excl, n_rows = owners(ny_eff, nr_cap)
     ridx = torch.arange(nr_cap, device=dev) - row_excl[runq]
     rx = take(rmin[..., 0])[runq].float()
@@ -285,7 +319,7 @@ def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
     bf = torch.where(live, bf, B * F)
     overflow = (total > kcap) | (n_rows > nr_cap)
     return _sort_and_ranges(tile_key, bf, sigma, B * n_tiles, total,
-                            overflow)
+                            overflow, n_rows)
 
 
 def _emit_bbox(pre, grid_x, grid_y, kcap, sort_by):
@@ -305,7 +339,7 @@ def _emit_bbox(pre, grid_x, grid_y, kcap, sort_by):
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         return _sort_and_ranges(dead_key, torch.zeros_like(dead_key),
                                 torch.zeros(0, dtype=torch.int64, device=dev),
-                                B * n_tiles, zero, zero > 0)
+                                B * n_tiles, zero, zero > 0, zero)
     rmin, rmax = pre["rect_min"], pre["rect_max"]
     sigma = _depth_presort(pre, tiles, sort_by)
     take = lambda x: x.reshape(B * F)[sigma]
@@ -317,11 +351,14 @@ def _emit_bbox(pre, grid_x, grid_y, kcap, sort_by):
     tile_key = torch.where(live, (face // F) * n_tiles + ty * grid_x + tx,
                            dead_key)
     bf = torch.where(live, face, B * F)
+    # no run table: runs is 0, the exclusive sum's first entry (a view, so
+    # no kernel joins a captured step)
     return _sort_and_ranges(tile_key, bf, sigma, B * n_tiles, total,
-                            total > kcap)
+                            total > kcap, excl[0])
 
 
-def _sort_and_ranges(tile_key, bf, sigma, n_tiles_total, total, overflow):
+def _sort_and_ranges(tile_key, bf, sigma, n_tiles_total, total, overflow,
+                     runs):
     """Stable sort of the slots by tile key (keeps the emission order inside
     every tile; int32 keys where they fit, half the radix passes of int64)
     and each tile's [start, end) range."""
@@ -339,6 +376,7 @@ def _sort_and_ranges(tile_key, bf, sigma, n_tiles_total, total, overflow):
         ends=ends.to(torch.int32),
         total=total,
         overflow=overflow,
+        runs=runs,
     )
 
 

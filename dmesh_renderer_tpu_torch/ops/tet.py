@@ -727,7 +727,8 @@ def render_tet_forward(verts, faces, verts_color, faces_opacity, mv_t,
     cap = record_capacity(B, height, width, max_steps)
     read = warn_if_overflow(
         fh_aux[0], fh_aux[1], kcap, FH_OVERFLOW_CONTEXT,
-        extra=(_record_counts(act, out_i[0], out_i[2]).sum(),))
+        extra=(_record_counts(act, out_i[0], out_i[2]).sum(),),
+        settings="TetRenderSettings")
     if read is not None:
         cap = max(cap, read[0])
     final_T = torch.exp(out_f[4])

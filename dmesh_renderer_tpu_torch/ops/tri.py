@@ -64,7 +64,8 @@ def render_tri_auto(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
                     inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
                     height: int, width: int, *, force: str | None = None,
                     kcap: int | None = None, with_aux: bool = False,
-                    run_cap: int | None = None, warn_overflow: bool = True):
+                    run_cap: int | None = None, warn_overflow: bool = True,
+                    with_runs: bool = False):
     """Render triangles; the strategy follows the face count. Gradients
     reach verts, verts_color, faces_opacity, verts_depth and faces_intense.
 
@@ -72,7 +73,8 @@ def render_tri_auto(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
     binned path's capacities (None: heuristics). with_aux: also return
     ``(overflow, num_rendered)``; the oracle has no capacity and reports
     ``(False, -1)``. warn_overflow: the binned path reads the overflow flag
-    once after its forward and warns (``render_tri_binned``)."""
+    once after its forward and warns (``render_tri_binned``). with_runs: the
+    binned path's aux also carries its run count (``render_tri_binned``)."""
     dev = verts.device
     B = mv_t.shape[0]
     strategy = tri_strategy(verts.shape[0], faces.shape[0], dev, force)
@@ -92,7 +94,7 @@ def render_tri_auto(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
         return render_tri_binned(
             verts, faces, verts_color, faces_opacity, mv_t, proj_t,
             inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
-            height, width, kcap, with_aux, run_cap, warn_overflow)
+            height, width, kcap, with_aux, run_cap, warn_overflow, with_runs)
 
     out = render_tri_oracle(
         verts, faces, verts_color, faces_opacity, mv_t, proj_t,

@@ -32,9 +32,10 @@ Every sum has a fixed order, so the gradients are bitwise deterministic.
 
 Every tensor of a frame is sized from B, F, H, W and the capacities, never
 from the scene (the records at the slot capacity, the walked total kept on
-the device), and the frame reads one value on the host: the overflow flag,
-after the forward (``binning.warn_if_overflow``), and none while a CUDA
-graph is being captured. So a frame, or a whole train step, can be
+the device), and the frame reads one value on the host: the overflow flag
+with the pair and run totals that word its warning, after the forward
+(``binning.warn_if_overflow``), and none while a CUDA graph is being
+captured. So a frame, or a whole train step, can be
 captured and replayed (``models.dmesh.make_train_step``).
 
 The face table is compact: [B*F, 27] f32 (TV, E1, E2, Q, 9 corner colours,
@@ -56,6 +57,7 @@ from .binning import (
     default_key_capacity,
     emit_and_sort,
     owners,
+    run_capacity,
     warn_if_overflow,
 )
 from .geometry import (
@@ -644,6 +646,7 @@ def _forward(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
     B = mv_t.shape[0]
     if kcap is None:
         kcap = default_key_capacity(B, faces.shape[0])
+    run_cap = run_capacity(B * faces.shape[0], kcap, run_cap)
     gx = (width + TILE - 1) // TILE
     gy = (height + TILE - 1) // TILE
 
@@ -658,7 +661,9 @@ def _forward(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
     _ray_o, ray_d = generate_rays(inv_mv_t, inv_proj_t, width, height)
     inputs = (keys.starts, keys.ends, keys.slot_face, face_f32[keys.sigma],
               face_i32[keys.sigma], ray_d, B, height, width)
-    spans.mark("tri.prep")
+    # the binning's run count, beside its table's capacity (the binning's
+    # own mark carries its pair count)
+    spans.mark("tri.prep", keys.runs, capacity=run_cap)
     C, D, T, pT, nc = fwd_composite(*inputs)
     color = C + T[:, None] * bg[None, :, None, None]
     depth = (D + T * 1.0)[:, None]
@@ -685,12 +690,12 @@ class _RenderTriBinned(torch.autograd.Function):
         ctx.save_for_backward(*inputs[:6], *state, keys.sigma, faces,
                               faces_intense, bg)
         ctx.n_verts = verts.shape[0]
-        ctx.mark_non_differentiable(keys.overflow, keys.total)
-        return color, depth, keys.overflow, keys.total
+        ctx.mark_non_differentiable(keys.overflow, keys.total, keys.runs)
+        return color, depth, keys.overflow, keys.total, keys.runs
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, dL_dcolor, dL_ddepth, _d_overflow, _d_total):
+    def backward(ctx, dL_dcolor, dL_ddepth, _d_overflow, _d_total, _d_runs):
         spans.mark("step.loss")
         (starts, ends, slot_face, ff, fi, ray_d, T, pT, nc, sigma, faces,
          faces_intense, bg) = ctx.saved_tensors
@@ -712,14 +717,15 @@ def render_tri_binned(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
                       inv_mv_t, inv_proj_t, verts_depth, faces_intense, bg,
                       height: int, width: int, kcap: int | None = None,
                       with_aux: bool = False, run_cap: int | None = None,
-                      warn_overflow: bool = True):
+                      warn_overflow: bool = True, with_runs: bool = False):
     """Tile-binned tri renderer.
 
     ``kcap``: (face, tile) key capacity (None: ``default_key_capacity``);
     ``run_cap``: (face, tile-row) run capacity (None: heuristic). Pairs
     past a capacity are dropped farthest first (see ops/binning.py).
     Returns (color [B, 3, H, W], depth [B, 1, H, W]) and, with
-    ``with_aux``, ``(overflow bool[], num_rendered int[])``. With
+    ``with_aux``, ``(overflow bool[], num_rendered int[])``, to which
+    ``with_runs`` adds the (face, tile-row) run count (int64[]). With
     ``warn_overflow`` the overflow flag is read once after the forward and
     an overflow warns (never while a CUDA graph is being captured).
 
@@ -728,13 +734,15 @@ def render_tri_binned(verts, faces, verts_color, faces_opacity, mv_t, proj_t,
     records nothing and the forward's residuals are freed on return."""
     if kcap is None:
         kcap = default_key_capacity(mv_t.shape[0], faces.shape[0])
-    color, depth, overflow, total = _RenderTriBinned.apply(
+    run_cap = run_capacity(mv_t.shape[0] * faces.shape[0], kcap, run_cap)
+    color, depth, overflow, total, runs = _RenderTriBinned.apply(
         verts, faces, verts_color, faces_opacity, mv_t, proj_t, inv_mv_t,
         inv_proj_t, verts_depth, faces_intense, bg, height, width, kcap,
         run_cap)
     if warn_overflow:
-        warn_if_overflow(overflow, total, kcap, "render_tri_binned; raise "
-                         "TriRenderSettings.key_capacity")
+        warn_if_overflow(overflow, total, kcap, "render_tri_binned",
+                         runs=runs, run_cap=run_cap,
+                         settings="TriRenderSettings")
     if with_aux:
-        return color, depth, (overflow, total)
+        return color, depth, (overflow, total) + ((runs,) if with_runs else ())
     return color, depth

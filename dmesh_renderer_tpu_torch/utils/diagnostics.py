@@ -34,8 +34,10 @@ kernel but not the stage that launched it:
     marks. Off, no graph holds a mark and nothing is allocated.
   * The stages, flat and back to back (each mark closes one): the tri
     step tri.project, tri.binning (counter tri.pairs, the emitted pairs),
-    tri.prep, tri.k1, step.loss, tri.k2 (counter tri.walked, the records
-    K2 wrote), tri.reduce, step.grads, step.optimizer; the tet step
+    tri.prep (counter tri.runs, the binning's (face, tile-row) runs, with
+    tri.runs.capacity, the run table's rows), tri.k1, step.loss, tri.k2
+    (counter tri.walked, the records K2 wrote), tri.reduce, step.grads,
+    step.optimizer; the tet step
     tet.first_hit (counter tet.fh_pairs), tet.tables, tet.k4, step.loss,
     tet.bwd_start (counter tet.records), tet.k5, tet.reduce, step.grads,
     then the wait for the flag read between its graphs, then

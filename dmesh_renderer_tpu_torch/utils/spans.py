@@ -12,11 +12,13 @@ launches ``span_mark`` (``csrc/spans.cu``), one thread that reads
 ``%globaltimer`` and takes its slot with an atomic add on the ring's head,
 on the current stream: inside a capture the mark becomes a graph node, and
 every replay appends that replay's records. ``counter`` is an optional
-0-d device tensor that the mark reads (a pair or record total; 0 without
-one). On the CPU a mark stores the host clock, ops being done when they
-return. A mark does something only while spans are on and a step object is
-inside a step (``in_step``): a frame rendered outside a train step leaves
-no record.
+0-d device tensor that the mark reads (a pair, run or record total; 0
+without one). ``capacity``, known on the host, is the size of the table
+that the counter fills: the report gives it beside the counter, for the
+steps from the one the mark belongs to on. On the CPU a mark stores the
+host clock, ops being done when they return. A mark does something only
+while spans are on and a step object is inside a step (``in_step``): a
+frame rendered outside a train step leaves no record.
 
 The stages. Each mark closes the stage before it and is named after it;
 ``step.open`` (which adds 1 to the device's step index) and
@@ -25,8 +27,9 @@ closing one. Stages are flat and back to back, so every kernel of a step
 lies in one stage:
 
   tri step (one graph): tri.project, tri.binning (counter tri.pairs),
-  tri.prep, tri.k1, step.loss, tri.k2 (counter tri.walked), tri.reduce,
-  step.grads, step.optimizer;
+  tri.prep (counter tri.runs, the binning's (face, tile-row) runs, with
+  the run table's rows as its capacity), tri.k1, step.loss, tri.k2
+  (counter tri.walked), tri.reduce, step.grads, step.optimizer;
   tet step (G1, the flag read, G2): tet.first_hit (counter tet.fh_pairs),
   tet.tables, tet.k4, step.loss, tet.bwd_start (counter tet.records),
   tet.k5, tet.reduce, step.grads | step.resume | step.optimizer.
@@ -75,8 +78,9 @@ MARKS = ("step.open", "step.resume",
 _ID = {n: i for i, n in enumerate(MARKS)}
 OPEN_STEP, RESUME, CLOSE_STEP = "step.open", "step.resume", "step.optimizer"
 # the counter each stage's closing mark carries
-COUNTERS = {"tri.binning": "tri.pairs", "tri.k2": "tri.walked",
-            "tet.first_hit": "tet.fh_pairs", "tet.bwd_start": "tet.records"}
+COUNTERS = {"tri.binning": "tri.pairs", "tri.prep": "tri.runs",
+            "tri.k2": "tri.walked", "tet.first_hit": "tet.fh_pairs",
+            "tet.bwd_start": "tet.records"}
 TRI_STAGES = ("tri.project", "tri.binning", "tri.prep", "tri.k1",
               "step.loss", "tri.k2", "tri.reduce", "step.grads",
               "step.optimizer")
@@ -113,6 +117,8 @@ class _Ring:
     def __init__(self, dev: torch.device):
         self.dev, self.step, self.head = dev, 0, 0
         self.clock: list = []  # the first and the newest clock samples
+        # counter -> [(first step, capacity)], in the order declared
+        self.capacities: dict = {}
         if dev.type == "cuda":
             if torch.cuda.is_current_stream_capturing():
                 raise RuntimeError("spans: the ring of a device is made "
@@ -124,6 +130,15 @@ class _Ring:
             self.clock.append(_clock_sample(self))
         else:
             self.rows = [None] * RING_ROWS
+
+    def capacity(self, counter: str, step: int):
+        """The capacity declared last for ``counter`` at or before
+        ``step`` (None: none)."""
+        out = None
+        for first, cap in self.capacities.get(counter, ()):
+            if first <= step:
+                out = cap
+        return out
 
     def read(self) -> list:
         """The records, oldest first: (id, step, ns, counter)."""
@@ -219,15 +234,25 @@ def in_step(dev):
         _depth, _dev = _depth - 1, prev
 
 
-def mark(name: str, counter: torch.Tensor | None = None) -> None:
+def mark(name: str, counter: torch.Tensor | None = None,
+         capacity: int | None = None) -> None:
     """Close the stage ``name`` (or open a step: ``step.open``,
-    ``step.resume``), reading ``counter`` where given; nothing unless
-    spans are on inside a step (module docstring)."""
+    ``step.resume``), reading ``counter`` where given, of a table of
+    ``capacity`` rows where given; nothing unless spans are on inside a
+    step (module docstring)."""
     global _last
     if not _depth:
         return
     ring = _ring(_dev)
     sid, open_step = _ID[name], name == OPEN_STEP
+    if capacity is not None:
+        # a mark inside a capture belongs to the graph's replays, the first
+        # of which is the next step
+        first = ring.step + int(ring.dev.type == "cuda"
+                                and torch.cuda.is_current_stream_capturing())
+        caps = ring.capacities.setdefault(COUNTERS[name], [])
+        if not caps or caps[-1][1] != capacity:
+            caps.append((first, int(capacity)))
     if ring.dev.type == "cpu":
         if open_step:
             ring.step += 1
@@ -347,7 +372,8 @@ def report(last_steps: int | None = None, step=None) -> dict:
       steps, step_indices ([first, last]), device, window_ms (first open
       to last close) and step_ms (mean open to close);
       stages {name: {count, mean_ms, total_ms}} in step order;
-      counters {name: {values (one a step), max}};
+      counters {name: {values (one a step), max}}, and beside a counter
+      that fills a table, ``<name>.capacity`` (the table's rows);
       gaps {"between_graphs", "between_steps": {count, mean_ms, total_ms,
       host {the host span open at the gap's start: count}}};
       per_step [{step, stages [[name, ms]], gaps [[kind, ms, host]],
@@ -397,8 +423,12 @@ def report(last_steps: int | None = None, step=None) -> dict:
             stages.setdefault(name, []).append(ms)
             row["stages"].append([name, ms])
             if name in COUNTERS:
-                counters.setdefault(COUNTERS[name], []).append(c)
-                row["counters"][COUNTERS[name]] = c
+                ctr = COUNTERS[name]
+                cap = ring.capacity(ctr, idx)
+                for key, value in ((ctr, c), (ctr + ".capacity", cap)):
+                    if value is not None:
+                        counters.setdefault(key, []).append(value)
+                        row["counters"][key] = value
         per_step.append(row)
         prev = (idx, marks)
     host: dict = {}

@@ -120,7 +120,7 @@ def test_recommended_capacities_match_jax():
         t[0], t[1], t[4], t[5], h, w, margin=1.25, bucket=128
     ) == jb.recommended_run_capacity(*ja, h, w, margin=1.25, bucket=128)
     assert tb.default_key_capacity(2, 24) == jb.default_key_capacity(2, 24)
-    assert tb._run_capacity(48, 8192) == jb._run_capacity(48, 8192)
+    assert tb.run_capacity(48, 8192) == jb._run_capacity(48, 8192)
 
 
 def test_drop_policy_is_farthest_first():
