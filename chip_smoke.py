@@ -11,8 +11,8 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
 1. print the card (name, count, nvidia-smi name and power limit);
 2. build the CUDA kernels of dmesh_renderer_tpu_torch/csrc (one nvcc per
    source, all at once) and print the build time and ptxas usage, K1's,
-   K3's, K4's, K5's, seg_sum's and T4's registers and shared memory on a
-   line of their own;
+   K3's, K4's, K5's, seg_sum's, T4's and the binning kernels' registers
+   and shared memory on a line of their own;
 3. hold the forward compositing kernel (K1, ``fwd_composite``) against its
    plain torch version on the card, at 4096 triangles, 256x256, B=2 and at
    the headline scene (100k triangles, 800x800, B=1, seed 0); time it
@@ -23,9 +23,13 @@ Needs one CUDA card (exits non-zero without one) and nvcc. Steps:
    pixel's covered slots) do with this run's data: the face rows each
    stages, and the blend's lane occupancy;
 4. drive the serving path, ``TriRenderer`` on the card at the headline
-   scene, with the launch counts set to 0 just before and read just after;
-   check its outputs, time it (2 warm-up, 10 timed runs, CUDA events) and
-   split the time by stage;
+   scene, with the launch counts set to 0 just before and read just after
+   (the binning's kernel route once); check its outputs, time it (2
+   warm-up, 10 timed runs, CUDA events) and split the time by stage; then
+   hold the binning's kernels (csrc/binning.cu, ``emit_and_sort``'s route
+   on the card) against the plain torch body at the headline and at the
+   headline scene in 8 views, every ``BinnedKeys`` field bit for bit, and
+   time both routes and each kernel under the profiler;
 5. check the forward's edge cases on the card: no faces, no vertices, B=2
    at 800x800 with 20k triangles, and binned against the dense oracle at
    4096 triangles;
@@ -229,6 +233,8 @@ import torch
 HEADLINE = dict(n_tris=100_000, n_views=1, height=800, width=800, seed=0)
 SMALL = dict(n_tris=4096, n_views=2, height=256, width=256, seed=1)
 TWO = dict(n_tris=20_000, n_views=2, height=800, width=800, seed=2)
+# the headline scene at 8 views: the shape of DMesh's 8-view step
+EIGHT = dict(HEADLINE, n_views=8)
 # (face, tile) pairs the headline scene emits: a property of the scene and
 # the exact-emission rule, the same count the JAX package's binning reports
 # for it (BENCH_r04.json, roofline tri_emit_sort.events)
@@ -916,6 +922,74 @@ def tet_tables_row(fargs, st, H, W):
             "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "library_ms": None, "bit_equal": not differ}
+
+
+BIN_KERNELS = ("bin_count", "bin_runs", "bin_emit")
+
+
+def binning_row(cases):
+    """The tri binning's exact path on the card (csrc/binning.cu:
+    ``bin_count``, ``bin_runs``, ``bin_emit``, the route
+    ``binning.emit_and_sort`` takes on CUDA tensors) against the plain
+    torch body it replaces (``binning.emit_exact_plain``), on the same card
+    tensors, at each case (label, pre, grid_x, grid_y, kcap): one counted
+    call, every ``BinnedKeys`` field bit for bit (dtype and values), ms by
+    CUDA events of both routes (each with its sort and ranges), each
+    kernel's device time, and the bound of the bytes the three kernels
+    move once. Returns the kernel table's row."""
+    from dmesh_renderer_tpu_torch.ops import binning
+
+    out = {}
+    for label, pre, gx, gy, kcap in cases:
+        B, F = pre["tiles"].shape
+        run = lambda: binning.emit_and_sort(pre, gx, gy, kcap, tile_px=32)
+        plain = lambda: binning.emit_exact_plain(pre, gx, gy, kcap, 32)
+        before = binning.emit_and_sort.launches
+        got = run()
+        torch.cuda.synchronize()
+        n_calls = binning.emit_and_sort.launches - before
+        check(n_calls == 1, f"binning [{label}]: {n_calls} kernel-route "
+              "calls, not one")
+        want = plain()
+        differ = [k for k, a, b in zip(want._fields, got, want)
+                  if a.dtype != b.dtype or not torch.equal(a, b)]
+        check(not differ, f"binning [{label}]: differs from plain in "
+              f"{differ}")
+        ms = cuda_ms(run, 2, 10)
+        plain_ms = cuda_ms(plain, 1, 5)
+        dev_ms = {k: profiled_device_ms(run, f"{k}_kernel")
+                  for k in BIN_KERNELS}
+        total, runs = int(want.total), int(want.runs)
+        nr_cap = binning.run_capacity(B * F, kcap)
+        live_runs = min(runs, nr_cap)
+        counts = binning.exact_tile_counts(pre, gx, gy, 32)
+        n_emit = int((counts > 0).sum())
+        # once: bin_count reads 57 B of a (view, face) and writes 72 (count,
+        # rows, 64-byte row); bin_runs reads 16 B of scans and sigma a face
+        # and the row of each face that emits, and writes 16 B a live run;
+        # bin_emit reads 12 B of each run-table row and 12 more of a live
+        # run, and writes 8 B a key slot
+        nbytes = (B * F * (57 + 72 + 16) + n_emit * 64 + live_runs * 28
+                  + nr_cap * 12 + kcap * 8)
+        b_ms, b_by, _o, _b = bound(0, nbytes)
+        out[label] = {"B": B, "F": F, "grid": [gx, gy], "kcap": kcap,
+                      "run_capacity": nr_cap, "total": total, "runs": runs,
+                      "faces_emitting": n_emit, "ms": ms, "plain_ms": plain_ms,
+                      "device_ms": dev_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "bytes": nbytes}
+        log(f"binning [{label}]: the kernel route {ms:.4f} ms with its sort "
+            f"(device: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                      dev_ms.items())
+            + f"); plain {plain_ms:.4f} ms; {total} pairs, {runs} runs, "
+            f"{n_emit} of {B * F} faces emit; {nbytes} bytes -> bound "
+            f"{b_ms:.4f} ms; every field bit-equal to plain")
+    return {"route": "cuda", "name": "emit_and_sort",
+            "source": "dmesh_renderer_tpu_torch/csrc/binning.cu",
+            "replaces": "ops/binning.py emit_exact_plain (port glue: the "
+                        "XLA ops of the JAX package's emit_and_sort, not a "
+                        "TPU kernel)",
+            "kernels": list(BIN_KERNELS), "cases": out, "library_ms": None,
+            "bit_equal": True}
 
 
 def k3_shapes(fh_inputs, walked, visits):
@@ -2168,7 +2242,8 @@ MV_TIMEOUT = 300.0  # seconds for the ranks' whole run
 # 1e-7), and the gradients at the binned path's 1e-4 rel
 MV_LOSS_RTOL = {"tri": 1e-6, "tet": 2e-5}
 # the kernels each rank must launch once per sharded step
-MV_KERNELS = {"tri": ("tri_fwd_composite", "tri_bwd_composite"),
+MV_KERNELS = {"tri": ("emit_and_sort", "tri_fwd_composite",
+                      "tri_bwd_composite"),
               "tet": ("tet_first_hit", "tet_fwd_march", "tet_bwd_march",
                       "tet_tables", "tet_ray_start")}
 
@@ -2180,12 +2255,16 @@ def sync(dev):
 
 def launch_counters():
     """Each main-path kernel wrapper, by the name the ``kernels`` line
-    gives it (``seg_sum`` once: the tri and tet reduces share it)."""
+    gives it (``seg_sum`` once: the tri and tet reduces share it;
+    ``emit_and_sort`` counts the tri binning's kernel route, three
+    launches of csrc/binning.cu a count)."""
+    from dmesh_renderer_tpu_torch.ops import binning
     from dmesh_renderer_tpu_torch.ops import reduce as rd
     from dmesh_renderer_tpu_torch.ops import tet, tet_first_hit
     from dmesh_renderer_tpu_torch.ops import tri_binned as tb
 
-    return {"tri_fwd_composite": tb.fwd_composite,
+    return {"emit_and_sort": binning.emit_and_sort,
+            "tri_fwd_composite": tb.fwd_composite,
             "tri_bwd_composite": tb.bwd_composite, "seg_sum": rd.seg_sum,
             "tet_first_hit": tet_first_hit.first_hit,
             "tet_fwd_march": tet.fwd_march, "tet_bwd_march": tet.bwd_march,
@@ -2676,7 +2755,8 @@ def example_phases():
     return out
 
 
-TRI_GRAPH_KERNELS = ("tri_fwd_composite", "tri_bwd_composite", "seg_sum")
+TRI_GRAPH_KERNELS = ("emit_and_sort", "tri_fwd_composite",
+                     "tri_bwd_composite", "seg_sum")
 
 
 def step_capture_phases(dev):
@@ -3133,6 +3213,7 @@ def main() -> int:
     import dmesh_renderer_tpu_torch as port
     from dmesh_renderer_tpu_torch import kernels
     from dmesh_renderer_tpu_torch.models import dmesh
+    from dmesh_renderer_tpu_torch.ops import binning
     from dmesh_renderer_tpu_torch.ops import reduce as rd
     from dmesh_renderer_tpu_torch.ops import tri_binned as tb
     from dmesh_renderer_tpu_torch.ops.tri import render_tri_auto
@@ -3158,12 +3239,14 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
     ptxas = {k: ptxas_usage(logs, k) for k in (
         "tri_fwd_kernel", "tet_first_hit", "tet_fwd_march", "seg_sum",
-        "tet_bwd_march", "proto_step")}
+        "tet_bwd_march", "proto_step",
+        *(f"{k}_kernel" for k in BIN_KERNELS))}
     log(f"ptxas: K1 tri_fwd_kernel {ptxas['tri_fwd_kernel']}; K3 "
         f"tet_first_hit {ptxas['tet_first_hit']}; K4 "
         f"tet_fwd_march {ptxas['tet_fwd_march']}; seg_sum "
         f"{ptxas['seg_sum']}; K5 tet_bwd_march {ptxas['tet_bwd_march']}; "
-        f"T4 proto_step {ptxas['proto_step']}")
+        f"T4 proto_step {ptxas['proto_step']}; binning "
+        + ", ".join(f"{k} {ptxas[k + '_kernel']}" for k in BIN_KERNELS))
 
     # ---- K1 against plain: 4096 tris at 256^2, B=2; then the headline
     user_s, fargs_s, _bg = scene_tensors(**SMALL, dev=dev)
@@ -3220,10 +3303,14 @@ def main() -> int:
     tb.fwd_composite.launches = 0
     tb.bwd_composite.launches = 0
     rd.seg_sum.launches = 0
+    binning.emit_and_sort.launches = 0
     color, depth, (ovf, n_rendered) = renderer(*user, return_aux=True)
     torch.cuda.synchronize()
     fwd_launches = tb.fwd_composite.launches
+    bin_serving = binning.emit_and_sort.launches
     check(fwd_launches >= 1, "serving path did not run K1")
+    check(bin_serving == 1, f"serving path: the binning's kernel route "
+          f"{bin_serving} times, not once")
     check(tb.bwd_composite.launches == 0 and rd.seg_sum.launches == 0,
           "serving path ran a backward kernel")
     check(color.grad_fn is None, "serving path recorded a graph")
@@ -3259,6 +3346,18 @@ def main() -> int:
     log(f"forward: {fwd_ms:.3f} ms/frame (peak extra memory "
         f"{fwd_peak / 2**20:.1f} MiB); stage split (ms): "
         + ", ".join(f"{n} {v:.3f}" for n, v in split.items()))
+
+    # ---- the binning's kernels against plain: the headline, B=1 and B=8
+    seq_8, st_8, _inputs_8 = stages(
+        scene_tensors(**EIGHT, dev=dev)[1], H, W)
+    seq_8[0][1]()
+    gx, gy = (W + 31) // 32, (H + 31) // 32
+    bin_row = binning_row((
+        ("headline", st["pre"], gx, gy,
+         binning.default_key_capacity(1, HEADLINE["n_tris"])),
+        ("headline, 8 views", st_8["pre"], gx, gy,
+         binning.default_key_capacity(8, EIGHT["n_tris"]))))
+    del seq_8, st_8, _inputs_8
 
     # ---- the forward's edge cases on the card
     r_small = port.TriRenderer(port.TriRenderSettings(64, 48, bg), "cuda")
@@ -3376,11 +3475,16 @@ def main() -> int:
     tb.fwd_composite.launches = 0
     tb.bwd_composite.launches = 0
     rd.seg_sum.launches = 0
+    binning.emit_and_sort.launches = 0
     fwd_bwd()
     torch.cuda.synchronize()
-    launches = {"tri_fwd_composite": tb.fwd_composite.launches,
+    launches = {"emit_and_sort": binning.emit_and_sort.launches,
+                "tri_fwd_composite": tb.fwd_composite.launches,
                 "tri_bwd_composite": tb.bwd_composite.launches,
                 "seg_sum": rd.seg_sum.launches}
+    check(launches["emit_and_sort"] == 1,
+          f"training path: the binning's kernel route "
+          f"{launches['emit_and_sort']} times, not once")
     for k, v in launches.items():
         check(v >= 1, f"training path did not run {k}")
     g1 = [x.grad.clone() for x in leaves]
@@ -3628,6 +3732,12 @@ def main() -> int:
          "tet_record_reduce": tet_train_info["tet_seg_sum_record"],
          "tet_vertex_reduce": tet_train_info["tet_seg_sum_vertex"],
          "ptxas": ptxas["seg_sum"]},
+        {**bin_row, "launches_serving_path": bin_serving,
+         "launches": launches["emit_and_sort"],
+         "launches_sharded_per_rank_step": sharded["emit_and_sort"],
+         "launches_captured_step": graph_launches["emit_and_sort"],
+         "launches_captured_sharded_step": mesh_launches["emit_and_sort"],
+         "ptxas": {k: ptxas[f"{k}_kernel"] for k in BIN_KERNELS}},
         *tet_kernels, k5_entry, *probe_entries,
     ], "fwd_bwd_ms": fb_ms, "fwd_bwd_split_ms": fb_split,
         "fwd_bwd_peak_mib": fb_peak / 2**20,

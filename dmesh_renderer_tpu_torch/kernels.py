@@ -39,8 +39,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 # argtypes of each library's launchers: pointers and the stream as c_void_p,
-# sizes as c_int, f32 scalars as c_float
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# sizes as c_int (c_int64 where they have no ceiling), f32 scalars as c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "tri_fwd": {"tri_fwd_composite": [_P] * 8 + [_I] * 3 + [_P]},
     "tri_bwd": {"tri_bwd_composite": [_P] * 13 + [_I] * 3 + [_P],
@@ -50,6 +50,9 @@ SIGNATURES = {
     "tet_bwd": {"tet_bwd_march": [_P] * 13 + [_I] * 3 + [_P]},
     "tet_tables": {"tet_tables": [_P] * 14 + [_I] * 3 + [_P],
                    "tet_ray_start": [_P] * 15 + [_I] * 2 + [_P]},
+    "binning": {"bin_count": [_P] * 16 + [_I] * 4 + [_P],
+                "bin_runs": [_P] * 7 + [_I, _L] + [_I] * 3 + [_P],
+                "bin_emit": [_P] * 7 + [_L] + [_I] * 5 + [_P]},
     "probes": {"take_rows": [_P] * 3 + [_I] * 2 + [_P],
                "roll_merge": [_P] * 2 + [_I] + [_P]},
     "march_probe": {"mega_step": [_P] * 5 + [_I] * 2 + [_P],
@@ -156,6 +159,22 @@ def _raw_stream(index: int) -> int:
     """The handle of device ``index``'s current stream, without building a
     ``torch.cuda.Stream``."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def check_tensors(name, want, device, contiguous=False):
+    """Raise unless every (tensor, dtype, shape) of ``want`` has that dtype
+    and shape, lies on ``device`` and, with ``contiguous``, is contiguous:
+    the kernel wrappers' argument checks."""
+    for t, dtype, shape in want:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name}: all tensors must share a device")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")
 
 
 def launch(name: str, fn: str, tensors, scalars, device) -> None:

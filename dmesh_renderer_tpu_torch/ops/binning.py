@@ -25,6 +25,11 @@ the live count take the sentinel tile key ``B * n_tiles``, which sorts them
 last and out of every tile's range. No count is read on the host, so both
 paths run inside a CUDA graph capture.
 
+On the card the exact path's counts, run table and slots come from the
+kernels of csrc/binning.cu, whose work follows the live faces, runs and
+pairs (``_exact_kernel``); the plain torch body (``emit_exact_plain``) is
+the route of every other device and the kernels' reference, bit for bit.
+
 The result is the same set and per-tile order of pairs as the JAX package,
 under the same capacity policy: at most ``kcap`` slots (and ``run_cap``
 runs) are kept in emission order, so the farthest faces of the highest view
@@ -53,6 +58,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import check_tensors, launch
 from ..utils.config import BIN_TILE, SUBPIXEL
 from .geometry import preprocess_faces, project_verts, sat_i32
 
@@ -275,15 +281,35 @@ def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
     tile of the bbox rect is emitted, as in the JAX package. ``sort_by``:
     the per-face depth key that orders each tile's list, "depth" (mean
     depth, tri) or "min_depth" (tet). The overflow is data
-    (``warn_if_overflow`` reads it)."""
+    (``warn_if_overflow`` reads it).
+
+    On CUDA tensors the exact path counts, fills the run table and emits
+    the pairs with the kernels of csrc/binning.cu (``_exact_kernel``; the
+    same bits, raises if it cannot); on other devices it runs
+    ``emit_exact_plain``."""
     if sort_by not in ("depth", "min_depth"):
         raise ValueError(f"sort_by must be 'depth' or 'min_depth', got "
                          f"{sort_by!r}")
     tiles = pre["tiles"]
-    B, F = tiles.shape
-    dev = tiles.device
     if not (tile_px is not None and kcap < _EXACT_KCAP_MAX and tiles.numel()):
         return _emit_bbox(pre, grid_x, grid_y, kcap, sort_by)
+    emit = _exact_kernel if tiles.device.type == "cuda" else emit_exact_plain
+    return emit(pre, grid_x, grid_y, kcap, tile_px, run_cap, sort_by)
+
+
+# kernel-route calls of emit_and_sort (three launches each)
+emit_and_sort.launches = 0
+
+
+def emit_exact_plain(pre: dict, grid_x: int, grid_y: int, kcap: int,
+                     tile_px: int, run_cap: int | None = None,
+                     sort_by: str = "depth") -> BinnedKeys:
+    """The exact path of ``emit_and_sort`` in plain torch ops (any device):
+    the tile counts over the whole [grid_y, B, F] grid, the run table over
+    all ``run_capacity`` rows and the slots over all ``kcap``."""
+    tiles = pre["tiles"]
+    B, F = tiles.shape
+    dev = tiles.device
     n_tiles = grid_x * grid_y
     rmin, rmax = pre["rect_min"], pre["rect_max"]
     counts = exact_tile_counts(pre, grid_x, grid_y, tile_px)
@@ -320,6 +346,60 @@ def emit_and_sort(pre: dict, grid_x: int, grid_y: int, kcap: int,
     overflow = (total > kcap) | (n_rows > nr_cap)
     return _sort_and_ranges(tile_key, bf, sigma, B * n_tiles, total,
                             overflow, n_rows)
+
+
+def _exact_kernel(pre: dict, grid_x: int, grid_y: int, kcap: int,
+                  tile_px: int, run_cap: int | None = None,
+                  sort_by: str = "depth") -> BinnedKeys:
+    """``emit_exact_plain`` by the three kernels of csrc/binning.cu, after
+    the argument checks: ``bin_count`` (one thread a (view, face): the
+    counts, the rows each face emits and a row of its coefficients), the
+    depth presort, the scan of the emitted rows in that order, ``bin_runs``
+    (one thread a sorted face: its rows of the run table), the scan of the
+    runs' pair counts, ``bin_emit`` (one thread a run and a slot: the keys
+    and faces, the sentinels past the live pairs), then the sort and the
+    ranges. No torch op runs over [grid_y, B, F], the run table or the
+    slots but the two scans, the run counts' memset, the sort and the
+    ranges."""
+    tiles = pre["tiles"]
+    B, F = tiles.shape
+    n = B * F
+    dev = tiles.device
+    i32 = torch.int32
+    want = [(pre[k][e], i32, (B, F)) for k in ("edge_a", "edge_b", "edge_c")
+            for e in range(3)]
+    want += [(pre["rect_min"], i32, (B, F, 2)),
+             (pre["rect_max"], i32, (B, F, 2)), (tiles, i32, (B, F)),
+             (pre["nondeg"], torch.bool, (B, F))]
+    check_tensors("emit_and_sort", want, dev, contiguous=True)
+    n_keys = B * grid_x * grid_y
+    if n >= 2 ** 31 or n_keys >= 2 ** 31:
+        raise ValueError(f"emit_and_sort: {n} (view, face) rows and {n_keys} "
+                         "tile keys; the kernels index both in int32")
+    counts = torch.empty((B, F), dtype=i32, device=dev)
+    ny_eff = torch.empty((n,), dtype=i32, device=dev)
+    rows = torch.empty((n, 16), dtype=torch.float32, device=dev)
+    launch("binning", "bin_count",
+           [t for t, _, _ in want] + [counts, ny_eff, rows],
+           [n, grid_x, grid_y, tile_px], dev)
+    sigma = _depth_presort(pre, counts, sort_by)
+    row_incl = torch.cumsum(ny_eff[sigma], 0)  # int64
+
+    nr_cap = run_capacity(n, kcap, run_cap)
+    run = [torch.empty((nr_cap,), dtype=i32, device=dev) for _ in range(3)]
+    run.append(torch.zeros((nr_cap,), dtype=i32, device=dev))
+    launch("binning", "bin_runs", [sigma, row_incl, rows, *run],
+           [n, nr_cap, grid_x, grid_y, tile_px], dev)
+    pair_incl = torch.cumsum(run[3], 0)  # int64
+
+    key = torch.empty((kcap,), dtype=i32, device=dev)
+    face = torch.empty((kcap,), dtype=i32, device=dev)
+    launch("binning", "bin_emit", [*run, pair_incl, key, face],
+           [nr_cap, kcap, B, F, grid_x, grid_y], dev)
+    emit_and_sort.launches += 1
+    total, runs = pair_incl[-1], row_incl[-1]
+    return _sort_and_ranges(key, face, sigma, n_keys, total,
+                            (total > kcap) | (runs > nr_cap), runs)
 
 
 def _emit_bbox(pre, grid_x, grid_y, kcap, sort_by):

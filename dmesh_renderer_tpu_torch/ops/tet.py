@@ -70,7 +70,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..kernels import launch
+from ..kernels import check_tensors, launch
 from ..utils import spans
 from ..utils.config import BIN_TILE, DEFAULT_MAX_MARCH_STEPS, T_EPS, TILE_X
 from .binning import default_key_capacity, warn_if_overflow
@@ -192,20 +192,6 @@ def first_intersection_dense(verts, faces, valid, order, ray_o, ray_d):
 # March tables, start tets, projective depth
 # =============================================================================
 
-def _check_tensors(name, want, device):
-    """Raise unless every (tensor, dtype, shape) of ``want`` has that dtype
-    and shape and lies on ``device``: the kernel wrappers' argument
-    checks."""
-    for t, dtype, shape in want:
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name}: all tensors must share a device")
-
-
 def _plain_device(name, t) -> bool:
     """True where ``t`` is on the CPU (the plain version runs), False on
     CUDA (the kernel runs); raises on any other device."""
@@ -259,7 +245,7 @@ def _tables_kernel(verts, faces, tets, tet_faces, face_tets, verts_color,
     B = faces_intense.shape[0]
     f32, i32 = torch.float32, torch.int32
     dev = verts.device
-    _check_tensors("march_tables", (
+    check_tensors("march_tables", (
         (verts, f32, (P, 3)), (faces, i32, (F, 3)), (tets, i32, (T, 4)),
         (tet_faces, i32, (T, 4)), (face_tets, i32, (F, 2)),
         (verts_color, f32, (P, 3)), (faces_opacity, f32, (F,)),
@@ -422,7 +408,7 @@ def _ray_start_kernel(first_face, ray_d, t, u, v, cam_o, mv_t, proj_t, geo,
     hit = [x.reshape(M) for x in (t, u, v)]
     dev = ray_d.device
     f32, i32 = torch.float32, torch.int32
-    _check_tensors("ray_start", (
+    check_tensors("ray_start", (
         (first_face, i32, (M,)), (ray_d, f32, (M, 3)),
         *((x, f32, (M,)) for x in hit), (cam_o, f32, (B, 3)),
         (mv_t, f32, (B, 4, 4)), (proj_t, f32, (B, 4, 4)),
@@ -461,7 +447,7 @@ def _check_march_args(ray_d, cam_o, zw, first_face, first_tet, tuv, tet_geo,
             (tet_nrm, torch.float32, (T, TET_NRM_COLS)),
             (tet_ids, torch.int32, (T, TET_ID_COLS)),
             (shade, torch.float32, (shade.shape[0], SHADE_COLS)))
-    _check_tensors("fwd_march", want, ray_d.device)
+    check_tensors("fwd_march", want, ray_d.device)
     if M != B * H * W or shade.shape[0] % B:
         raise ValueError(f"fwd_march: {M} rays for {B} views of {H}x{W}, "
                          f"shade rows {shade.shape[0]}")
@@ -841,7 +827,7 @@ def _check_bwd_args(ray_d, cam_o, zw, ray_i, ray_f, off, tet_geo, tet_nrm,
             (tet_nrm, torch.float32, (T, TET_NRM_COLS)),
             (tet_ids, torch.int32, (T, TET_ID_COLS)),
             (shade, torch.float32, (shade.shape[0], SHADE_COLS)))
-    _check_tensors("bwd_march", want, ray_d.device)
+    check_tensors("bwd_march", want, ray_d.device)
     if M != B * N or shade.shape[0] % B:
         raise ValueError(f"bwd_march: {M} rays for {B} views of {N}, shade "
                          f"rows {shade.shape[0]}")
